@@ -1,0 +1,247 @@
+"""The rollout engine: one step function, looped over frames.
+
+Counterpart of ``piml_tpu/engine/rollout.py`` (reference:
+src/models/simulators.py:595-652).  Per frame:
+
+- the model predicts accelerations from the carried features;
+- lagged explicit Euler: ``v' = v + a_prev·dt``, ``p' = p + v·dt``
+  (``lagged=False``: ``v' = v + F·dt``, ``p' = p + v'·dt``);
+- waypoints advance below 0.5 m, clamped at the last one; arrived agents
+  retire to NaN (``retire_on_arrival``);
+- newly appearing agents teleport in from ground truth;
+- the neighbour features are rebuilt for the next frame.
+
+The loop is plain Python under ``torch.inference_mode()``; the banded
+selector's exactness flag is read on the host once per pass.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, List, NamedTuple
+
+import torch
+
+from piml_tpu_torch.physics import (
+    NeighborConfig,
+    collision_detection_single_frame,
+    collision_label,
+    heading_direction,
+    relative_features,
+)
+from piml_tpu_torch.physics.features import prepare_obstacle_index
+
+
+@dataclasses.dataclass(frozen=True)
+class EngineConfig:
+    """Static rollout configuration."""
+
+    neighbor: NeighborConfig = NeighborConfig()
+    time_unit: float = 0.08
+    lagged: bool = True             # reference Euler lag (simulators.py:602-604)
+    retire_on_arrival: bool = True  # eval/gen: NaN out arrived agents
+    track_collisions: bool = False  # per-step contact counts
+    collision_threshold: float = 0.5
+    track_collision_labels: bool = False  # pinnsf_bm multitask bookkeeping
+
+
+@dataclasses.dataclass
+class EngineState:
+    """One frame's live state (agent axis N).  ``ped_f`` / ``obs_f`` /
+    ``self_f`` are the next model inputs: the first step uses the
+    dataset-built features (simulators.py:571-572,642-651)."""
+
+    p: torch.Tensor          # (N, 2) NaN = absent
+    v: torch.Tensor          # (N, 2)
+    a: torch.Tensor          # (N, 2)
+    dest: torch.Tensor       # (N, 2)
+    dest_idx: torch.Tensor   # (N,) int32
+    hist_v: torch.Tensor     # (N, 2*h)
+    ped_f: torch.Tensor      # (N, k1, 6)
+    obs_f: torch.Tensor      # (N, k2, 6)
+    self_f: torch.Tensor     # (N, 2 + 2h + 2 + 1)
+
+
+class StepOutputs(NamedTuple):
+    """Per-frame recorded outputs (stacked along time by :func:`rollout`)."""
+
+    p: torch.Tensor
+    v: torch.Tensor
+    a: torch.Tensor
+    mask: torch.Tensor              # presence at recording time
+    collisions: torch.Tensor        # (N,) soft contact counts (or zeros)
+    hard_collisions: torch.Tensor
+    coll_pred: torch.Tensor         # (N, k1) per-edge collision predictions
+    true_coll: torch.Tensor         # (N, k1) labels recomputed from features
+    msg_l1: torch.Tensor            # scalar sum |ped_msgs|
+
+
+class SpawnFrame(NamedTuple):
+    """Ground-truth teleport-in data; time-leading in :func:`rollout`."""
+
+    new: torch.Tensor        # (N,) 0/1 — agents appearing at this frame
+    p: torch.Tensor
+    v: torch.Tensor
+    a: torch.Tensor
+    dest: torch.Tensor
+    dest_idx: torch.Tensor
+    hist_v: torch.Tensor
+
+
+def select_waypoint(waypoints: torch.Tensor,
+                    dest_idx: torch.Tensor) -> torch.Tensor:
+    """``waypoints[dest_idx[n], n]`` with NaN-padded rows read as 0."""
+    n = torch.arange(waypoints.shape[1], device=waypoints.device)
+    return torch.nan_to_num(waypoints)[dest_idx.long(), n]
+
+
+def make_features_fn(cfg: EngineConfig, obstacles: torch.Tensor,
+                     desired_speed: torch.Tensor, obstacle_index=None):
+    """The per-step feature rebuild ``(p, v, a, dest, hist_v, k1, k2) ->
+    (ped_f, obs_f, self_f)`` with a single-frame heading."""
+
+    def features_for(p, v, a, dest, hist_v, k1, k2):
+        # k1/k2 keep the neighbour axes at the dataset-seeded widths
+        ncfg = cfg.neighbor._replace(topk_ped=k1, topk_obs=k2)
+        v0 = torch.where(torch.isnan(v), 0.0, v)
+        ped_f, obs_f, dest_f = relative_features(
+            p, v, a, dest, obstacles, ncfg,
+            heading=heading_direction(v0, time_axis=False),
+            obstacle_index=obstacle_index)
+        self_f = torch.cat([dest_f, hist_v, a, desired_speed], dim=-1)
+        return ped_f, obs_f, self_f
+
+    return features_for
+
+
+def make_step(model: Callable, cfg: EngineConfig, waypoints: torch.Tensor,
+              dest_num: torch.Tensor, obstacles: torch.Tensor,
+              desired_speed: torch.Tensor, obstacle_index=None):
+    """Build the step ``(state, spawn) -> (state, outputs)``; ``model`` maps
+    ``(ped_f, obs_f, self_f)`` to a ``ModelOutput``."""
+    dt = cfg.time_unit
+    features_for = make_features_fn(cfg, obstacles, desired_speed,
+                                    obstacle_index=obstacle_index)
+
+    def step(state: EngineState, spawn: SpawnFrame):
+        present = (~torch.isnan(state.p[..., 0])).to(state.p.dtype)
+
+        out = model(state.ped_f, state.obs_f, state.self_f)
+        a_next = out.pred_acc
+        msg_l1 = (out.ped_msgs.abs().sum() if out.ped_msgs is not None
+                  else torch.zeros((), device=state.p.device))
+
+        if cfg.track_collisions:
+            coll = collision_detection_single_frame(state.p,
+                                                    cfg.collision_threshold)
+            hard = collision_detection_single_frame(
+                state.p, cfg.collision_threshold / 2)
+        else:
+            coll = torch.zeros_like(present)
+            hard = torch.zeros_like(present)
+
+        if cfg.track_collision_labels and out.coll_pred is not None:
+            coll_pred = out.coll_pred
+            true_coll = collision_label(state.ped_f)
+        else:
+            k1 = state.ped_f.shape[-2]
+            coll_pred = torch.zeros(state.p.shape[:-1] + (k1,),
+                                    dtype=state.p.dtype,
+                                    device=state.p.device)
+            true_coll = torch.zeros_like(coll_pred)
+
+        if cfg.lagged:
+            v_next = state.v + state.a * dt
+            p_next = state.p + state.v * dt
+        else:
+            v_next = state.v + a_next * dt
+            p_next = state.p + v_next * dt
+
+        # waypoint advance, retirement
+        dis = torch.linalg.vector_norm(state.p - state.dest, dim=-1)
+        dest_idx = state.dest_idx + (dis < 0.5).to(state.dest_idx.dtype)
+        arrived = dest_idx > dest_num - 1
+        if cfg.retire_on_arrival:
+            p_next = torch.where(arrived[..., None], torch.nan, p_next)
+        dest_idx = torch.where(arrived, dest_idx - 1, dest_idx)
+        dest_next = select_waypoint(waypoints, dest_idx)
+
+        hist_v = torch.cat([state.hist_v[..., 2:], v_next], dim=-1)
+
+        # teleport-in of newly appearing agents
+        new = spawn.new[..., None] == 1
+        p_next = torch.where(new, spawn.p, p_next)
+        v_next = torch.where(new, spawn.v, v_next)
+        a_next = torch.where(new, spawn.a, a_next)
+        dest_next = torch.where(new, spawn.dest, dest_next)
+        dest_idx = torch.where(spawn.new == 1, spawn.dest_idx, dest_idx)
+        hist_v = torch.where(new, spawn.hist_v, hist_v)
+
+        ped_f, obs_f, self_f = features_for(
+            p_next, v_next, a_next, dest_next, hist_v,
+            state.ped_f.shape[-2], state.obs_f.shape[-2])
+
+        new_state = EngineState(
+            p=p_next, v=v_next, a=a_next, dest=dest_next, dest_idx=dest_idx,
+            hist_v=hist_v, ped_f=ped_f, obs_f=obs_f, self_f=self_f)
+        outputs = StepOutputs(
+            p=state.p, v=state.v, a=state.a, mask=present,
+            collisions=coll, hard_collisions=hard,
+            coll_pred=coll_pred, true_coll=true_coll, msg_l1=msg_l1)
+        return new_state, outputs
+
+    return step
+
+
+def init_state(p, v, a, dest, dest_idx, ped_f, obs_f, self_f) -> EngineState:
+    """Seed the state from dataset tensors at ``t_start``; ``self_f[..., 2:-3]``
+    holds the history velocities (simulators.py:571-573,624)."""
+    return EngineState(
+        p=p, v=v, a=a, dest=dest, dest_idx=dest_idx.to(torch.int32),
+        hist_v=self_f[..., 2:-3], ped_f=ped_f, obs_f=obs_f, self_f=self_f)
+
+
+@torch.inference_mode()
+def rollout(model: Callable, cfg: EngineConfig, state: EngineState,
+            spawns: SpawnFrame, waypoints: torch.Tensor,
+            dest_num: torch.Tensor, obstacles: torch.Tensor,
+            desired_speed: torch.Tensor):
+    """Run ``T_roll = spawns.new.shape[0]`` steps from ``state``; returns
+    ``(final_state, StepOutputs)`` with time-major outputs."""
+    # the obstacle table is static: build the banded selector's index once
+    ncfg_k = cfg.neighbor._replace(topk_ped=state.ped_f.shape[-2],
+                                   topk_obs=state.obs_f.shape[-2])
+    obstacle_index = prepare_obstacle_index(state.p.shape[-2], obstacles,
+                                            ncfg_k)
+    step = make_step(model, cfg, waypoints, dest_num, obstacles,
+                     desired_speed, obstacle_index=obstacle_index)
+    outs: List[StepOutputs] = []
+    for t in range(spawns.new.shape[0]):
+        state, o = step(state, SpawnFrame(*(x[t] for x in spawns)))
+        outs.append(o)
+    return state, StepOutputs(*(torch.stack(x) for x in zip(*outs)))
+
+
+def spawn_frames_from_scene(position, velocity, acceleration, destination,
+                            dest_idx, self_features, mask_p, mask_p_pred,
+                            t_start: int) -> SpawnFrame:
+    """The teleport-in schedule from ground truth: ``new = mask_p −
+    mask_p_pred`` (simulators.py:593); step ``t`` injects frame ``t+1``,
+    so the frames are ``t_start+1 .. T`` with a zero final frame."""
+    new_flag = (mask_p - mask_p_pred).to(position.dtype)
+
+    def shift(x):
+        return torch.cat([x[t_start + 1:], torch.zeros_like(x[:1])], dim=0)
+
+    def nan0(x):
+        return torch.where(torch.isnan(x), 0.0, x)
+
+    return SpawnFrame(
+        new=shift(new_flag),
+        p=shift(nan0(position)),
+        v=shift(velocity),
+        a=shift(acceleration),
+        dest=shift(nan0(destination)),
+        dest_idx=shift(dest_idx).to(torch.int32),
+        hist_v=shift(self_features[..., 2:-3]),
+    )

@@ -1,0 +1,9 @@
+from piml_tpu_torch.models.blocks import MLP, ResBlock, ResDNN, activation_fn  # noqa: F401
+from piml_tpu_torch.models.convert import load_fixture, params_from_flax  # noqa: F401
+from piml_tpu_torch.models.zoo import (  # noqa: F401
+    PINNSF,
+    ModelOutput,
+    ModelSpec,
+    build_model,
+    goal_acceleration,
+)

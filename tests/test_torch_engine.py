@@ -1,0 +1,233 @@
+"""The port's main path end to end against the JAX package (CPU): a 60-frame
+slice of the committed GC scene (all 337 agents, 4,094 obstacle points,
+``skip_frames=25``) through ``make_time_indexed`` and ``evaluate_rollouts``
+with the trained ``pinnsf_bm`` weights.
+
+Tolerances: ``mse``, ``mae`` and both collision counts to rtol 1e-4;
+trajectories to atol 1e-4 m (float32 rounding, summed in other orders,
+compounds over 35 closed-loop frames); features as in
+``_torch_compare.assert_features_match``.
+"""
+
+import os
+import subprocess
+import sys
+
+import numpy as np
+import jax.numpy as jnp
+import pytest
+import torch
+from flax.serialization import msgpack_restore
+
+from _torch_compare import assert_features_match
+from piml_tpu.config import PIMLConfig as JaxConfig
+from piml_tpu.data import make_time_indexed as jax_make_time_indexed
+from piml_tpu.engine import engine_config as jax_engine_config
+from piml_tpu.engine import eval_rollout as jax_eval_rollout
+from piml_tpu.engine import evaluate_rollouts as jax_evaluate
+from piml_tpu.engine.rollout import EngineConfig as JaxEngineConfig
+from piml_tpu.engine.rollout import SpawnFrame as JaxSpawnFrame
+from piml_tpu.engine.rollout import init_state as jax_init_state
+from piml_tpu.engine.rollout import make_step as jax_make_step
+from piml_tpu.engine.rollout import select_waypoint as jax_select_waypoint
+from piml_tpu.models import ModelSpec as JaxSpec, build_model as jax_build
+from piml_tpu.physics import NeighborConfig as JaxNeighborConfig
+from piml_tpu.physics import relative_features as jax_features
+from piml_tpu.scene import Scene as JaxScene
+from piml_tpu_torch.config import PIMLConfig
+from piml_tpu_torch.data import make_time_indexed
+from piml_tpu_torch.engine import (EngineConfig, SpawnFrame, engine_config,
+                                   eval_rollout, evaluate_rollouts,
+                                   init_state, make_step, select_waypoint)
+from piml_tpu_torch.models import ModelSpec, build_model, load_fixture
+from piml_tpu_torch.scene import Scene, codec
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+SCENE = os.path.join(REPO, "repro_work", "gc_sf_repro.npy")
+MSGPACK = os.path.join(REPO, "bench_fixtures", "pinnsf_bm_gc_finetuned.msgpack")
+FRAMES = 60
+CFG = dict(model="pinnsf_bm", dataset_name="gc2344", dropout=0.0,
+           skip_frames=25, time_unit=0.08)
+T_KEYED = ("position", "velocity", "acceleration", "destination", "dest_idx",
+           "mask_p", "mask_v", "mask_a")
+
+
+@pytest.fixture(scope="module")
+def gc_slice():
+    """Both packages' datasets and models on the same decoded arrays."""
+    arrays = codec.decode(SCENE)
+    for key in T_KEYED:
+        arrays[key] = arrays[key][:FRAMES]
+    jcfg, tcfg = JaxConfig(**CFG), PIMLConfig(**CFG)
+    jdata = jax_make_time_indexed(jcfg, JaxScene.from_arrays(arrays))
+    with open(MSGPACK, "rb") as f:
+        params = msgpack_restore(f.read())
+    jmodel = jax_build(JaxSpec.from_config(jcfg))
+
+    def apply_fn(pr, pf, of, sf):
+        return jmodel.apply(pr, pf, of, sf)
+
+    tdata = make_time_indexed(tcfg, Scene.from_arrays(arrays))
+    model = build_model(ModelSpec.from_config(tcfg))
+    model.load_state_dict(load_fixture())
+    model.eval()
+    return dict(jcfg=jcfg, tcfg=tcfg, jdata=jdata, tdata=tdata,
+                params=params, apply_fn=apply_fn, model=model)
+
+
+def test_scene_load_matches_jax():
+    ref = JaxScene.load(SCENE)
+    got = Scene.load(SCENE)
+    for key in T_KEYED + ("waypoints", "dest_num", "obstacles"):
+        np.testing.assert_allclose(getattr(got, key).numpy(),
+                                   np.asarray(getattr(ref, key)),
+                                   rtol=1e-6, atol=1e-5, err_msg=key)
+    assert got.num_steps == ref.num_steps == 750
+    assert got.num_pedestrians == ref.num_pedestrians == 337
+
+
+def test_make_time_indexed_matches_jax(gc_slice):
+    jd, td = gc_slice["jdata"], gc_slice["tdata"]
+    cfg = gc_slice["tcfg"]
+    assert_features_match(jd.ped_features, td.ped_features.numpy(),
+                          cfg.dist_threshold_ped, name="gc/ped")
+    assert_features_match(jd.obs_features, td.obs_features.numpy(),
+                          cfg.dist_threshold_obs, name="gc/obs")
+    for key in ("self_features", "labels", "desired_speed", "mask_p_pred",
+                "mask_a_pred", "abnormal_mask"):
+        np.testing.assert_allclose(getattr(td, key).numpy(),
+                                   np.asarray(getattr(jd, key)),
+                                   atol=1e-5, err_msg=key)
+
+
+def test_eval_rollout_trajectories_match_jax(gc_slice):
+    g = gc_slice
+    ref = jax_eval_rollout(
+        g["params"], g["apply_fn"],
+        jax_engine_config(g["jcfg"], retire=True, track_collisions=False,
+                          track_labels=False),
+        g["jdata"], CFG["skip_frames"])
+    got = eval_rollout(
+        g["model"],
+        engine_config(g["tcfg"], retire=True, track_collisions=False,
+                      track_labels=False),
+        g["tdata"], CFG["skip_frames"])
+    np.testing.assert_array_equal(got.mask_p.numpy(), np.asarray(ref.mask_p))
+    p_ref, p_got = np.asarray(ref.position), got.position.numpy()
+    np.testing.assert_array_equal(np.isnan(p_got), np.isnan(p_ref))
+    np.testing.assert_allclose(p_got, p_ref, rtol=0, atol=1e-4)
+    assert np.isfinite(p_got[got.mask_p.numpy() == 1]).all()
+
+
+def test_evaluate_rollouts_matches_jax(gc_slice):
+    g = gc_slice
+    ref = jax_evaluate(g["params"], g["apply_fn"], g["jcfg"], [g["jdata"]])
+    got = evaluate_rollouts(g["model"], g["tcfg"], [g["tdata"]])
+    for key in ("loss", "mse", "mae", "collision", "hard_collision"):
+        assert getattr(got, key) == pytest.approx(getattr(ref, key),
+                                                  rel=1e-4), key
+    assert got.ot is None and got.mmd is None   # not ported yet
+    assert got.collision > 0 and got.mse > 0
+
+
+def test_select_waypoint_matches_jax(rng):
+    wp = rng.randn(4, 30, 2).astype(np.float32)
+    wp[2:, ::3] = np.nan
+    idx = rng.randint(0, 4, size=30).astype(np.int32)
+    idx[::3] = np.minimum(idx[::3], 1)
+    ref = jax_select_waypoint(jnp.asarray(wp), jnp.asarray(idx))
+    got = select_waypoint(torch.from_numpy(wp), torch.from_numpy(idx))
+    np.testing.assert_array_equal(got.numpy(), np.asarray(ref))
+
+
+def test_port_imports_no_jax():
+    """The port and every module of it import neither JAX, flax nor the JAX
+    package (an H100 host has none of them)."""
+    code = (
+        "import sys, pkgutil, importlib, piml_tpu_torch\n"
+        "for m in pkgutil.walk_packages(piml_tpu_torch.__path__, "
+        "'piml_tpu_torch.'):\n"
+        "    importlib.import_module(m.name)\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'flax', 'optax', 'piml_tpu')]\n"
+        "assert not bad, bad\n"
+        "print('ok', len([m for m in sys.modules "
+        "if m.startswith('piml_tpu_torch')]))\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.startswith("ok")
+
+
+@pytest.mark.parametrize("lagged,retire,track", [(True, True, False),
+                                                 (False, False, True)])
+def test_make_step_matches_jax(rng, lagged, retire, track):
+    """One engine step on the same state in both packages: Euler variant,
+    waypoint advance and arrival, teleport-in, collision bookkeeping and
+    the feature rebuild."""
+    n, m, d = 40, 50, 3
+    p = (rng.rand(n, 2) * 8).astype(np.float32)
+    p[:3] = np.nan
+    v = rng.randn(n, 2).astype(np.float32)
+    a = (0.3 * rng.randn(n, 2)).astype(np.float32)
+    wp = (rng.rand(d, n, 2) * 8).astype(np.float32)
+    wp[2, ::2] = np.nan
+    dest_num = np.where(np.arange(n) % 2 == 0, 2, 3).astype(np.int32)
+    dest_idx = (np.arange(n) % 2).astype(np.int32)
+    dest = wp[dest_idx, np.arange(n)]
+    dest[5:12] = p[5:12] + 0.1          # arrivals / waypoint advances
+    obs = (rng.rand(m, 2) * 8).astype(np.float32)
+    ds = np.full((n, 1), 1.3, np.float32)
+    pf, of, df = (np.array(x) for x in jax_features(
+        jnp.asarray(p), jnp.asarray(v), jnp.asarray(a), jnp.asarray(dest),
+        jnp.asarray(obs), JaxNeighborConfig()))
+    sf = np.concatenate([df, v, a, ds], axis=-1)
+    new = np.zeros(n, np.float32)
+    new[:2] = 1.0
+    spawn = [new, (rng.rand(n, 2) * 8).astype(np.float32),
+             rng.randn(n, 2).astype(np.float32),
+             np.zeros((n, 2), np.float32), wp[0].copy(),
+             np.zeros(n, np.int32), rng.randn(n, 2).astype(np.float32)]
+    spawn[4][np.isnan(spawn[4])] = 0.0
+
+    kw = dict(lagged=lagged, retire_on_arrival=retire,
+              track_collisions=track, track_collision_labels=track)
+    with open(MSGPACK, "rb") as f:
+        params = msgpack_restore(f.read())
+    jmodel = jax_build(JaxSpec.from_config(JaxConfig(**CFG)))
+    jstep = jax_make_step(lambda pr, a_, b_, c_: jmodel.apply(pr, a_, b_, c_),
+                          JaxEngineConfig(**kw), jnp.asarray(wp),
+                          jnp.asarray(dest_num), jnp.asarray(obs),
+                          jnp.asarray(ds))
+    jstate = jax_init_state(*(jnp.asarray(x) for x in
+                              (p, v, a, dest, dest_idx, pf, of, sf)))
+    jnew, jout = jstep(params, jstate,
+                       JaxSpawnFrame(*(jnp.asarray(x) for x in spawn)))
+
+    model = build_model(ModelSpec.from_config(PIMLConfig(**CFG)))
+    model.load_state_dict(load_fixture())
+    model.eval()
+    def t(x):
+        return torch.from_numpy(np.array(x))
+
+    tstep = make_step(model, EngineConfig(**kw), t(wp), t(dest_num), t(obs),
+                      t(ds))
+    tstate = init_state(*(t(x) for x in (p, v, a, dest, dest_idx, pf, of,
+                                         sf)))
+    with torch.inference_mode():
+        tnew, tout = tstep(tstate, SpawnFrame(*(t(x) for x in spawn)))
+
+    for key in ("p", "v", "a", "dest", "dest_idx", "hist_v", "self_f"):
+        np.testing.assert_allclose(getattr(tnew, key).numpy(),
+                                   np.asarray(getattr(jnew, key)),
+                                   atol=1e-5, err_msg=key)
+    assert_features_match(jnew.ped_f, tnew.ped_f.numpy(), 4.0, name="ped_f")
+    assert_features_match(jnew.obs_f, tnew.obs_f.numpy(), 4.0, name="obs_f")
+    for key in ("p", "mask", "collisions", "hard_collisions", "coll_pred",
+                "true_coll"):
+        np.testing.assert_allclose(getattr(tout, key).numpy(),
+                                   np.asarray(getattr(jout, key)),
+                                   atol=1e-5, err_msg=key)
+    assert float(tout.msg_l1) == pytest.approx(float(jout.msg_l1), rel=1e-5)
+    if track:
+        assert float(tout.collisions.sum()) > 0

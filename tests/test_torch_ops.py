@@ -1,0 +1,264 @@
+"""The port's neighbour-selection kernels (piml_tpu_torch/ops) against the
+JAX package's Pallas kernels, run in interpret mode on the CPU.
+
+On the CPU each wrapper takes its kernel's plain PyTorch version.  The
+tolerances:
+
+- indices must be equal wherever the JAX distance is finite, and both
+  sides must agree on which slots are +inf;
+- distances agree to rtol 1e-6, not bitwise: XLA on the CPU contracts
+  ``dx*dx + dy*dy`` into a fused multiply-add and its sqrt is not
+  correctly rounded, while the port (and its CUDA kernel, built with
+  --fmad=false) rounds every operation;
+- an empty (+inf) slot carries index 0 in the port; the JAX kernels write
+  an arbitrary id there, so those indices are not compared.
+"""
+
+import numpy as np
+import jax.numpy as jnp
+import pytest
+import torch
+
+from piml_tpu.ops.banded import topk_neighbors_banded as jax_banded
+from piml_tpu.ops.grid_pairs import build_cell_index as jax_cell_index
+from piml_tpu.ops.pairwise import topk_neighbors_pallas as jax_dense
+from piml_tpu.physics.features import heading_direction as jax_heading
+from piml_tpu_torch.ops import banded, grid_pairs, pairwise
+
+
+def _t(x):
+    return torch.from_numpy(np.array(x, np.float32))
+
+
+def _heading(vel):
+    return np.array(jax_heading(jnp.asarray(vel), time_axis=False))
+
+
+def assert_selection_close(d_jax, i_jax, d_port, i_port):
+    d_jax, i_jax = np.asarray(d_jax), np.asarray(i_jax)
+    d_port, i_port = d_port.numpy(), i_port.numpy()
+    assert d_jax.shape == d_port.shape
+    fin = np.isfinite(d_jax)
+    np.testing.assert_array_equal(np.isfinite(d_port), fin)
+    np.testing.assert_array_equal(i_port[fin], i_jax[fin])
+    np.testing.assert_allclose(d_port[fin], d_jax[fin], rtol=1e-6, atol=0)
+    assert (i_port[~fin] == 0).all()
+
+
+def _lattice(side=40, spacing=2.0):
+    xs, ys = np.meshgrid(np.arange(side), np.arange(side))
+    pos = np.stack([xs.ravel(), ys.ravel()], 1).astype(np.float32) * spacing
+    heading = np.tile(np.array([[1.0, 0.0]], np.float32), (pos.shape[0], 1))
+    return pos, heading
+
+
+# ---------------------------------------------------------------------------
+# K1: dense selection
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("n,absent", [(64, 0.0), (300, 0.3), (513, 0.1)])
+def test_k1_plain_matches_jax_kernel(rng, n, absent):
+    pos = rng.randn(n, 2).astype(np.float32) * 5
+    pos[rng.rand(n) < absent] = np.nan
+    h = _heading(rng.randn(n, 2).astype(np.float32))
+    d_j, i_j = jax_dense(jnp.asarray(pos), jnp.asarray(h), 6, 90.0,
+                         interpret=True)
+    d_t, i_t = pairwise.topk_neighbors_pallas(_t(pos), _t(h), 6, 90.0)
+    assert_selection_close(d_j, i_j, d_t, i_t)
+
+
+def test_k1_plain_separate_objects_matches_jax_kernel(rng):
+    n, m = 200, 300
+    pos = rng.randn(n, 2).astype(np.float32) * 10
+    obs = rng.randn(m, 2).astype(np.float32) * 10
+    obs[rng.rand(m) < 0.2] = np.nan
+    h = _heading(rng.randn(n, 2).astype(np.float32))
+    d_j, i_j = jax_dense(jnp.asarray(pos), jnp.asarray(h), 8, 90.0,
+                         objects=jnp.asarray(obs), same_objects=False,
+                         interpret=True)
+    d_t, i_t = pairwise.topk_neighbors_pallas(_t(pos), _t(h), 8, 90.0,
+                                              objects=_t(obs),
+                                              same_objects=False)
+    assert_selection_close(d_j, i_j, d_t, i_t)
+
+
+@pytest.mark.parametrize("angle", [90.0, 180.0])
+def test_k1_plain_lattice_ties_match_jax_kernel(angle):
+    """Integer lattice: distances tie in groups; ties go to the lowest
+    object id on both sides (at 180° the self pair is in view)."""
+    pos, h = _lattice()
+    d_j, i_j = jax_dense(jnp.asarray(pos), jnp.asarray(h), 6, angle,
+                         interpret=True)
+    d_t, i_t = pairwise.topk_neighbors_pallas(_t(pos), _t(h), 6, angle)
+    assert_selection_close(d_j, i_j, d_t, i_t)
+
+
+def test_k1_plain_k_wider_than_table(rng):
+    """k > M gives min(k, M) columns, as the reference's sort + [:k]."""
+    pos = rng.randn(20, 2).astype(np.float32)
+    obs = rng.randn(4, 2).astype(np.float32)
+    h = _heading(rng.randn(20, 2).astype(np.float32))
+    d_j, i_j = jax_dense(jnp.asarray(pos), jnp.asarray(h), 10, 90.0,
+                         objects=jnp.asarray(obs), same_objects=False,
+                         interpret=True)
+    d_t, i_t = pairwise.topk_neighbors_pallas(_t(pos), _t(h), 10, 90.0,
+                                              objects=_t(obs),
+                                              same_objects=False)
+    assert d_t.shape == (20, 4)
+    assert_selection_close(d_j, i_j, d_t, i_t)
+
+
+def test_k1_wrapper_refuses_bad_inputs_before_any_launch():
+    """The CUDA route validates its inputs and never falls back to the
+    plain version; on malformed tensors it raises before touching the
+    library."""
+    rows = torch.zeros((5, 8))
+    with pytest.raises(ValueError):
+        pairwise.pairwise_topk_cuda(rows, torch.zeros((2, 5)), 3, 0.1, True)
+    with pytest.raises(TypeError):
+        pairwise.pairwise_topk_cuda(rows.double(), torch.zeros((3, 5)), 3,
+                                    0.1, True)
+    with pytest.raises(ValueError):
+        pairwise.pairwise_topk_cuda(rows, torch.zeros((3, 5)), 17, 0.1, True)
+    with pytest.raises(ValueError, match="CUDA"):   # well-formed, on the CPU
+        pairwise.pairwise_topk_cuda(rows, torch.zeros((3, 5)), 3, 0.1, True)
+
+
+# ---------------------------------------------------------------------------
+# K2: banded selection
+# ---------------------------------------------------------------------------
+
+def _spread(rng, n, extent):
+    pos = (rng.rand(n, 2) * extent).astype(np.float32)
+    vel = (extent / 2 - pos) + rng.randn(n, 2).astype(np.float32)
+    return pos, _heading(vel)
+
+
+def _window_overflow(rng):
+    # a tight cluster inside a wide scene: the cluster tile's window
+    # overflows, so the flag must be False
+    n = 600
+    pos = (rng.rand(n, 2) * 0.5 + 100.0).astype(np.float32)
+    pos[:60] = (rng.rand(60, 2) * 100.0).astype(np.float32)
+    h = np.tile(np.array([[1.0, 0.0]], np.float32), (n, 1))
+    return pos, h, dict(grid_dim=16, window=128)
+
+
+def _runaways(rng):
+    n = 2000
+    pos = (rng.rand(n, 2) * 60.0).astype(np.float32)
+    pos[0] = (-4000.0, -4000.0)
+    pos[1] = (7000.0, 30.0)
+    pos[2] = (30.0, 9000.0)
+    h = _heading((30.0 - pos) + rng.randn(n, 2).astype(np.float32))
+    return pos, h, dict(dist_threshold=4.0)
+
+
+def _banded_case(name, rng):
+    if name == "lattice_ties":
+        pos, h = _lattice()
+        return pos, h, 180.0, {}
+    if name == "window_overflow":
+        pos, h, kw = _window_overflow(rng)
+        return pos, h, 90.0, kw
+    if name == "runaway_outliers":
+        pos, h, kw = _runaways(rng)
+        return pos, h, 90.0, kw
+    if name == "all_invalid":
+        return (np.full((512, 2), np.nan, np.float32),
+                np.zeros((512, 2), np.float32), 90.0, {})
+    if name == "spread_absent":
+        pos, h = _spread(rng, 1500, 60.0)
+        pos[rng.rand(1500) < 0.25] = np.nan
+        return pos, h, 90.0, {}
+    raise ValueError(name)
+
+
+def _k1_equal_where_exact(d_k2, i_k2, d_k1, i_k1, dist_threshold):
+    """An exact banded result equals K1's: everywhere when selection-exact,
+    on the in-threshold slots when the dist_threshold clause proved it."""
+    d_k2, i_k2, d_k1, i_k1 = (x.numpy() for x in (d_k2, i_k2, d_k1, i_k1))
+    if dist_threshold is None:
+        np.testing.assert_array_equal(d_k2, d_k1)
+        np.testing.assert_array_equal(i_k2, i_k1)
+        return
+    in_thr = d_k1 <= dist_threshold
+    np.testing.assert_array_equal(d_k2 <= dist_threshold, in_thr)
+    np.testing.assert_array_equal(d_k2[in_thr], d_k1[in_thr])
+    np.testing.assert_array_equal(i_k2[in_thr], i_k1[in_thr])
+
+
+@pytest.mark.parametrize("case", ["lattice_ties", "window_overflow",
+                                  "runaway_outliers", "all_invalid",
+                                  "spread_absent"])
+def test_k2_plain_matches_jax_kernel(rng, case):
+    pos, h, angle, kw = _banded_case(case, rng)
+    d_j, i_j, ex_j = jax_banded(jnp.asarray(pos), jnp.asarray(h), 6, angle,
+                                interpret=True, **kw)
+    d_t, i_t, ex_t = banded.topk_neighbors_banded(_t(pos), _t(h), 6, angle,
+                                                  **kw)
+    assert bool(ex_t) == bool(ex_j)
+    assert_selection_close(d_j, i_j, d_t, i_t)
+    if bool(ex_t):
+        d1, i1 = pairwise.topk_neighbors_pallas(_t(pos), _t(h), 6, angle)
+        _k1_equal_where_exact(d_t, i_t, d1, i1, kw.get("dist_threshold"))
+    if case == "window_overflow":
+        assert not bool(ex_t)
+
+
+def test_k2_plain_separate_objects_matches_jax_kernel(rng):
+    n, m = 700, 3000
+    pos, h = _spread(rng, n, 50.0)
+    obs = (rng.rand(m, 2) * 50.0).astype(np.float32)
+    obs[rng.rand(m) < 0.1] = np.nan
+    d_j, i_j, ex_j = jax_banded(jnp.asarray(pos), jnp.asarray(h), 10, 90.0,
+                                objects=jnp.asarray(obs), same_objects=False,
+                                interpret=True)
+    d_t, i_t, ex_t = banded.topk_neighbors_banded(
+        _t(pos), _t(h), 10, 90.0, objects=_t(obs), same_objects=False)
+    assert bool(ex_t) and bool(ex_j)
+    assert_selection_close(d_j, i_j, d_t, i_t)
+    d1, i1 = pairwise.topk_neighbors_pallas(_t(pos), _t(h), 10, 90.0,
+                                            objects=_t(obs),
+                                            same_objects=False)
+    _k1_equal_where_exact(d_t, i_t, d1, i1, None)
+
+
+def test_k2_composed_selector_falls_back_and_counts(rng):
+    pos, h, kw = _window_overflow(rng)
+    sentinel = (torch.full((600, 6), -1.0),
+                torch.full((600, 6), -7, dtype=torch.int32))
+    before = banded.KERNEL.fallbacks
+    d, i = banded.topk_neighbors_banded_or_dense(
+        _t(pos), _t(h), 6, 90.0, lambda: sentinel, **kw)
+    assert d is sentinel[0] and i is sentinel[1]
+    assert banded.KERNEL.fallbacks == before + 1
+
+
+def test_build_cell_index_matches_jax(rng):
+    pos = (rng.rand(3000, 2) * 80.0).astype(np.float32)
+    pos[rng.rand(3000) < 0.1] = np.nan
+    o_j, off_j, lo_j, cs_j = jax_cell_index(jnp.asarray(pos), 24)
+    o_t, off_t, lo_t, cs_t = grid_pairs.build_cell_index(_t(pos), 24)
+    # quantile interpolation may differ by an ulp between the frameworks
+    np.testing.assert_allclose(lo_t.numpy(), np.asarray(lo_j), rtol=1e-6)
+    np.testing.assert_allclose(cs_t.numpy(), np.asarray(cs_j), rtol=1e-6)
+    np.testing.assert_array_equal(off_t.numpy(), np.asarray(off_j))
+    np.testing.assert_array_equal(o_t.numpy(), np.asarray(o_j))
+
+
+def test_k2_wrapper_refuses_bad_inputs_before_any_launch():
+    rows = torch.zeros((128, 8))
+    cols = torch.zeros((6, 512))
+    geo = torch.ones(4)
+    ws = torch.zeros(1, dtype=torch.int32)
+    with pytest.raises(ValueError):   # window runs past the table
+        banded.banded_topk_cuda(ws, geo, rows, cols, 512, 4, 6, 0.1, True)
+    with pytest.raises(ValueError):   # rows not a whole number of tiles
+        banded.banded_topk_cuda(ws, geo, rows[:100].contiguous(), cols, 128,
+                                4, 6, 0.1, True)
+    with pytest.raises(TypeError):
+        banded.banded_topk_cuda(ws.long(), geo, rows, cols, 128, 4, 6, 0.1,
+                                True)
+    with pytest.raises(ValueError, match="CUDA"):   # well-formed, on the CPU
+        banded.banded_topk_cuda(ws, geo, rows, cols, 128, 4, 6, 0.1, True)
