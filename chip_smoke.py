@@ -23,13 +23,33 @@ Phases, one line each; any failure raises and exits non-zero:
    equal;
 7. the GC window (``repro_work/gc_sf_repro.npy``): ``make_time_indexed``
    and ``evaluate_rollouts`` on the GPU, and a 60-frame slice on the GPU
-   against the same slice on the CPU.
+   against the same slice on the CPU;
+8. K2 with its channel axis on the stress scene at C = 2 (the second
+   channel a seeded jitter of the first), agent and obstacle pass: the
+   batched launch bitwise equal to its plain version and to two
+   single-channel launches; median milliseconds of both;
+9. the dense-N finetune step (``bench.py:493`` ``bench_train_step_denseN``:
+   C = 2 windows × T = 10 frames, 12,685 live agents over 200 m,
+   64 obstacles, ``pinnsf_bm`` finetune model with ``pred_acc`` clamped
+   to ±5, the bench's loss weights, dropout 0): three Adam steps whose
+   feature passes launch the channel-batched K2 on every frame; s/step,
+   peak memory, launches, fallbacks, finite losses; then one step through
+   the kernels and through the plain versions (loss to rtol 1e-6,
+   gradients to relative L2 1e-5: the index-gather backward accumulates
+   with atomics);
+10. the paper-shape finetune step (``bench.py:352``: 32 windows × 10
+    frames of the GC scene, pretrained weights): loss and gradients on the
+    GPU against the CPU path (rtol 1e-4, relative L2 1e-3); s/step;
+11. ``Trainer.finetune``: 2 epochs on GC windows from the pretrained
+    weights, validated on a held-out frame range, checkpoints in a
+    temporary directory; finite losses, and the reloaded best checkpoint
+    gives the best validation loss again.
 
 The line before the last holds the kernels' record as JSON, and the last
 line is ``{"ok": true, "device": {...}}``.  Launch counts are zeroed just
-before phase 4 and read just after phase 5: they count only the main
-path's launches.  It needs no network and starts no process besides
-``nvidia-smi`` and the ``nvcc`` build.
+before each main path (phases 4-5, phase 9) and read just after it: they
+count only the main paths' launches.  It needs no network and starts no
+process besides ``nvidia-smi`` and the ``nvcc`` builds.
 """
 
 import contextlib
@@ -39,6 +59,7 @@ import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from unittest import mock
 
@@ -50,6 +71,21 @@ WARMUP_FRAMES = 3
 SEED = 1
 DEVICE = "cuda:0"
 GC_SLICE_FRAMES = 60
+TRAIN_CHANNELS = 2          # dense-N finetune step (bench.py:493)
+TRAIN_FRAMES = 10
+TRAIN_STEPS = 3
+TRAIN_OBSTACLES = 64
+PAPER_WINDOWS = 32          # paper-shape step (bench.py:352)
+FT_WINDOWS = (25, 125)      # Trainer.finetune: training windows' first
+FT_VALID_FRAMES = (600, 700)  # frames, and the held-out validation frames
+# the bench's finetune hyper-parameters (bench.py:382, :520)
+TRAIN_CFG = dict(model="pinnsf_bm", dataset_name="gc2344", dropout=0.0,
+                 skip_frames=25, valid_steps=TRAIN_FRAMES,
+                 learning_rate=2e-4, weight_decay=1e-6,
+                 finetune_lr_decay=0.02, collision_pred_weight=5e-2,
+                 collision_loss_weight=200.0, collision_focus_weight=1.0,
+                 hard_collision_penalty=2.0, time_decay=0.9, reg_weight=1e-2,
+                 collision_loss_version="v2", time_unit=0.08)
 
 
 def say(phase, **kw):
@@ -132,6 +168,105 @@ def trained_model(device):
     return cfg, model.to(device).eval()
 
 
+def finetune_model(cfg, device, pretrained=None):
+    """A seeded ``pinnsf_bm`` finetune model (random weights, or the
+    ``pretrained`` state dict)."""
+    import torch
+
+    from piml_tpu_torch.models import ModelSpec, build_finetune_model
+
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(SEED)
+        model = build_finetune_model(ModelSpec.from_config(cfg))
+    if pretrained is not None:
+        model.load_state_dict(pretrained)
+    return model.to(device)
+
+
+class Clamped:
+    """The bench's clamp of ``pred_acc`` to ±5: untrained weights would
+    fling agents out of the banded kernel's density regime."""
+
+    def __init__(self, model):
+        self.model = model
+
+    def __call__(self, pf, of, sf, rng=None):
+        import torch
+
+        out = self.model(pf, of, sf, rng)
+        return out._replace(pred_acc=torch.clamp(out.pred_acc, -5.0, 5.0))
+
+
+def dense_batch(device):
+    """``bench_train_step_denseN``'s batch: C windows of N live agents
+    uniform over 200 m drifting at their initial velocity, 64 obstacles,
+    frame-0 features from the channel-batched feature pass."""
+    import torch
+
+    from piml_tpu_torch.data import ChanneledData
+    from piml_tpu_torch.physics import (NeighborConfig, heading_direction,
+                                        relative_features)
+
+    C, T, n = TRAIN_CHANNELS, TRAIN_FRAMES, N_AGENTS
+    g = torch.Generator().manual_seed(11)
+    pos0 = (torch.rand((C, n, 2), generator=g) * 200.0).to(device)
+    vel0 = torch.randn((C, n, 2), generator=g).to(device)
+    wp = (torch.rand((1, n, 2), generator=g) * 200.0).to(device)
+    obstacles = (torch.rand((TRAIN_OBSTACLES, 2), generator=g)
+                 * 200.0).to(device)
+    acc0 = torch.zeros_like(pos0)
+    dest0 = wp[0].expand(C, n, 2)
+    ds = torch.full((n,), 1.34, device=device)
+    with torch.no_grad():
+        pf0, of0, df0 = relative_features(
+            pos0, vel0, acc0, dest0, obstacles, NeighborConfig(),
+            heading=heading_direction(vel0, time_axis=False), batched=True)
+    sf0 = torch.cat([df0, vel0, acc0, ds[None, :, None].expand(C, n, 1)],
+                    dim=-1)
+
+    def tile_t(x):
+        return x[:, None].expand((C, T) + x.shape[1:])
+
+    drift = torch.arange(T, device=device, dtype=torch.float32) * 0.08
+    pos = pos0[:, None] + vel0[:, None] * drift[None, :, None, None]
+    ones = torch.ones((C, T, n), device=device)
+    labels = torch.cat([pos, tile_t(vel0), tile_t(acc0),
+                        torch.zeros((C, T, n, 1), device=device)], dim=-1)
+    return ChanneledData(
+        ped_features=tile_t(pf0), obs_features=tile_t(of0),
+        self_features=tile_t(sf0), labels=labels, mask_p=ones, mask_v=ones,
+        mask_a=ones, mask_p_pred=ones, mask_v_pred=ones, mask_a_pred=ones,
+        position=pos, velocity=tile_t(vel0), acceleration=tile_t(acc0),
+        destination=tile_t(dest0),
+        dest_idx=torch.zeros((C, T, n), dtype=torch.int32, device=device),
+        abnormal_mask=torch.ones(n, device=device),
+        dest_num=torch.ones(n, dtype=torch.int32, device=device),
+        waypoints=wp, obstacles=obstacles, desired_speed=ds,
+        meta_data={"time_unit": 0.08})
+
+
+def loss_and_grads(model, cfg, batch, fn=None):
+    """One forward and backward of the training loss: ``(loss terms,
+    {name: gradient})``."""
+    from piml_tpu_torch.engine import training_rollout_loss
+
+    model.zero_grad(set_to_none=True)
+    out = training_rollout_loss(fn or model, cfg, batch)
+    out.loss.backward()
+    return ({k: float(v.detach()) for k, v in out._asdict().items()},
+            {n: p.grad.detach().clone() for n, p in model.named_parameters()})
+
+
+def grad_rel_l2(got, ref):
+    """Relative L2 distance of two gradient dicts: over all parameters
+    together, and the worst single tensor."""
+    num = sum(float(((got[k].cpu() - ref[k].cpu()) ** 2).sum()) for k in ref)
+    den = sum(float((ref[k].cpu() ** 2).sum()) for k in ref)
+    worst = max(float((got[k].cpu() - ref[k].cpu()).norm())
+                / max(float(ref[k].cpu().norm()), 1e-30) for k in ref)
+    return math.sqrt(num / max(den, 1e-30)), worst
+
+
 def stress_rollout(model, sc, ncfg, frames):
     """Initial features, then ``frames`` closed-loop steps; returns the
     recorded outputs and the wall seconds of the loop."""
@@ -178,8 +313,11 @@ def main():
                          "script; run it from a checkout of the repository")
     sys.path.insert(0, ROOT)
 
+    import numpy as np
+
     import piml_tpu_torch  # noqa: F401  (sets allow_tf32 = False)
     from piml_tpu_torch import _build
+    from piml_tpu_torch.engine import training_rollout_loss
     from piml_tpu_torch.ops import banded, pairwise
     from piml_tpu_torch.physics import NeighborConfig, heading_direction, \
         relative_features
@@ -391,6 +529,175 @@ def main():
         mae=[m_gpu.mae, m_cpu.mae],
         collision=[m_gpu.collision, m_cpu.collision])
 
+    # ---- 8. K2 with a channel axis -----------------------------------------
+    g = torch.Generator().manual_seed(SEED + 1)
+    jitter = [0.05 * torch.randn((N_AGENTS, 2), generator=g) for _ in "pv"]
+    pos2 = torch.stack([sc["pos"], sc["pos"] + jitter[0].to(dev)])
+    head2 = heading_direction(
+        torch.stack([sc["vel"], sc["vel"] + jitter[1].to(dev)]),
+        time_axis=False)
+    for name, kw in k2_passes.items():
+        kw = dict(kw)
+        kw.pop("same_objects", None)
+        captured = {}
+        real = banded.banded_topk
+
+        def capture(*args):
+            captured["args"] = args
+            return real(*args)
+
+        with mock.patch.object(banded, "banded_topk", capture):
+            got = banded.topk_neighbors_banded_batched(pos2, head2, **kw)
+        with plain_route():
+            ref = banded.topk_neighbors_banded_batched(pos2, head2, **kw)
+        objects = kw.pop("objects", None)
+        singles = [banded.topk_neighbors_banded(
+            pos2[c], head2[c], objects=objects, same_objects=objects is None,
+            **kw) for c in range(2)]
+        torch.cuda.synchronize()
+        for j, what in enumerate(("dist", "idx", "exact")):
+            assert_equal(got[j], ref[j], f"batched K2 {name} {what}")
+            for c in range(2):
+                assert_equal(got[j][c], singles[c][j],
+                             f"batched K2 {name} {what} vs channel {c}")
+        args = captured["args"]
+        ms = cuda_ms(lambda: banded.banded_topk_cuda(*args), 50)
+        plain_ms = cuda_ms(lambda: banded.banded_topk_plain(*args), 10)
+        k2[f"ms_batched_{name}"] = ms
+        k2[f"plain_ms_batched_{name}"] = plain_ms
+        say("k2_batched", which=name, channels=2,
+            exact=got[2].tolist(), bitwise_equal_plain=True,
+            bitwise_equal_single_launches=True, ms=ms, plain_ms=plain_ms)
+
+    # ---- 9. the dense-N finetune step --------------------------------------
+    from piml_tpu_torch.config import PIMLConfig
+    from piml_tpu_torch.train.trainer import make_optimizer
+
+    cfg9 = PIMLConfig(**TRAIN_CFG, ft_batch_size=TRAIN_CHANNELS)
+    batch9 = dense_batch(dev)
+    model9 = finetune_model(cfg9, dev)
+    clamped = Clamped(model9)
+    opt = make_optimizer(cfg9, model9.parameters(), finetune=True)
+    pairwise.KERNEL.launches = 0
+    banded.KERNEL.launches = 0
+    banded.KERNEL.fallbacks = 0
+    torch.cuda.reset_peak_memory_stats(dev)
+    step_s, step_losses = [], []
+    for _ in range(TRAIN_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = training_rollout_loss(clamped, cfg9, batch9)
+        opt.zero_grad(set_to_none=True)
+        out.loss.backward()
+        opt.step()
+        step_losses.append(out.loss.item())
+        step_s.append(time.perf_counter() - t0)
+    ft_launches = dict(k1=pairwise.KERNEL.launches, k2=banded.KERNEL.launches,
+                       k2_fallbacks=banded.KERNEL.fallbacks)
+    peak = torch.cuda.max_memory_allocated(dev)
+    say("dense_finetune_step", channels=TRAIN_CHANNELS, frames=TRAIN_FRAMES,
+        agents=N_AGENTS, obstacles=TRAIN_OBSTACLES, s_per_step=step_s,
+        max_memory_allocated_bytes=peak, losses=step_losses, **ft_launches)
+    if not all(math.isfinite(x) for x in step_losses):
+        raise AssertionError(f"dense finetune: losses {step_losses}")
+    if ft_launches["k2"] < TRAIN_STEPS * TRAIN_FRAMES:
+        raise AssertionError("dense finetune: K2 was not launched on every "
+                             f"frame ({ft_launches['k2']} launches)")
+    terms_k, grads_k = loss_and_grads(model9, cfg9, batch9, clamped)
+    with plain_route():
+        terms_p, grads_p = loss_and_grads(model9, cfg9, batch9, clamped)
+    rel, worst = grad_rel_l2(grads_k, grads_p)
+    say("dense_finetune_kernel_vs_plain", loss=[terms_k["loss"],
+                                                terms_p["loss"]],
+        grad_rel_l2=rel, grad_rel_l2_worst_tensor=worst)
+    if abs(terms_k["loss"] - terms_p["loss"]) > 1e-6 * abs(terms_p["loss"]):
+        raise AssertionError("dense finetune: kernel and plain losses "
+                             f"differ ({terms_k['loss']} vs {terms_p['loss']})")
+    if not rel <= 1e-5:
+        raise AssertionError(f"dense finetune: gradients differ ({rel})")
+
+    # ---- 10. the paper-shape finetune step ----------------------------------
+    from piml_tpu_torch.data import ChanneledData, to_channeled
+    from piml_tpu_torch.models import PRETRAINED, load_fixture
+
+    cfg10 = PIMLConfig(**TRAIN_CFG, ft_batch_size=PAPER_WINDOWS,
+                       remat_features=False)
+    # the first 32 windows with predictable agents (skip_frames = 25)
+    batch10 = to_channeled(data, TRAIN_FRAMES, "slice").slice_channels(
+        list(range(cfg10.skip_frames, cfg10.skip_frames + PAPER_WINDOWS)))
+    pre = load_fixture(PRETRAINED)
+    model10 = finetune_model(cfg10, dev, pre)
+    opt10 = make_optimizer(cfg10, model10.parameters(), finetune=True)
+    terms_g, grads_g = loss_and_grads(model10, cfg10, batch10)
+    batch_cpu = ChanneledData(**{
+        k: (v.cpu() if torch.is_tensor(v) else v)
+        for k, v in vars(batch10).items()})
+    terms_c, grads_c = loss_and_grads(finetune_model(cfg10, "cpu", pre),
+                                      cfg10, batch_cpu)
+    rel10, worst10 = grad_rel_l2(grads_g, grads_c)
+    for key, ref_v in terms_c.items():
+        if abs(terms_g[key] - ref_v) > 1e-4 * abs(ref_v) + 1e-6:
+            raise AssertionError(f"paper step {key}: GPU {terms_g[key]} vs "
+                                 f"CPU {ref_v}")
+    if not worst10 <= 1e-3:
+        raise AssertionError(f"paper step: gradients differ ({worst10})")
+    times10 = []
+    for _ in range(TRAIN_STEPS + 1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = training_rollout_loss(model10, cfg10, batch10)
+        opt10.zero_grad(set_to_none=True)
+        out.loss.backward()
+        opt10.step()
+        torch.cuda.synchronize()
+        times10.append(time.perf_counter() - t0)
+    say("paper_finetune_step", windows=PAPER_WINDOWS, frames=TRAIN_FRAMES,
+        agents=data.num_pedestrians, loss=[terms_g["loss"], terms_c["loss"]],
+        grad_rel_l2=rel10, grad_rel_l2_worst_tensor=worst10,
+        s_per_step=times10[1:], first_step_s=times10[0])
+
+    # ---- 11. Trainer.finetune ----------------------------------------------
+    from piml_tpu_torch.data import channel_batches
+    from piml_tpu_torch.engine import evaluate_rollouts as evaluate
+    from piml_tpu_torch.train.trainer import (MetricLogger, Trainer,
+                                              checkpoint_path, load_params)
+
+    arrays = codec.decode(scene_path)
+    for key in ("position", "velocity", "acceleration", "destination",
+                "dest_idx", "mask_p", "mask_v", "mask_a"):
+        arrays[key] = arrays[key][slice(*FT_VALID_FRAMES)]
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg11 = PIMLConfig(**TRAIN_CFG, ft_batch_size=PAPER_WINDOWS,
+                           epochs=2, save_dir=tmp, exp_name="chip_smoke",
+                           model_name_suffix="ft", patience=5)
+        valid = make_time_indexed(cfg11, Scene.from_arrays(arrays, dev))
+        windows = to_channeled(data, TRAIN_FRAMES, "slice").slice_channels(
+            list(range(*FT_WINDOWS)))
+        batches = channel_batches([windows], cfg11.ft_batch_size,
+                                  np.random.RandomState(cfg11.seed),
+                                  shuffle=True)
+        logger = MetricLogger(stream=open(os.devnull, "w"))
+        t0 = time.perf_counter()
+        state = Trainer(cfg11, logger).finetune(batches, [valid],
+                                                pretrained=pre)
+        torch.cuda.synchronize()
+        ft_s = time.perf_counter() - t0
+        train_l = [r["train_loss"] for r in logger.records
+                   if "train_loss" in r]
+        val_l = [r["val_loss"] for r in logger.records if "val_loss" in r]
+        fresh = finetune_model(cfg11, dev,
+                               load_params(checkpoint_path(cfg11, True)))
+        again = evaluate(fresh, cfg11, [valid], test_flag=False).loss
+    say("trainer_finetune", epochs=len(train_l), batches=len(batches),
+        train_loss=train_l, val_loss=val_l, best_val=state.best_val,
+        reloaded_val=again, seconds=ft_s)
+    if len(train_l) != 2 or not all(math.isfinite(x)
+                                     for x in train_l + val_l):
+        raise AssertionError(f"finetune: losses {train_l} / {val_l}")
+    if abs(again - state.best_val) > 1e-6 * abs(state.best_val):
+        raise AssertionError(f"finetune: reloaded best checkpoint gives "
+                             f"{again}, best was {state.best_val}")
+
     kernels = [
         dict(name="pairwise_topk (K1)", route="cuda",
              source="piml_tpu_torch/csrc/pairwise_topk.cu",
@@ -399,7 +706,9 @@ def main():
         dict(name="banded_topk (K2)", route="cuda",
              source="piml_tpu_torch/csrc/banded_topk.cu",
              replaces="piml_tpu/ops/banded.py:116",
-             launches=launches["k2"], **record["k2"]),
+             launches=launches["k2"] + ft_launches["k2"],
+             launches_rollout=launches["k2"],
+             launches_finetune=ft_launches["k2"], **record["k2"]),
     ]
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -2,7 +2,8 @@
 
 ``csrc/*.cu`` compile with ``nvcc`` into one shared library with a plain C
 interface, bound with ``ctypes``: no source includes PyTorch's headers, so
-a build takes seconds.  The library goes to ``build/piml_tpu_torch/<hash>/``
+a build takes seconds.  Each source compiles in its own ``nvcc`` process,
+all started together, and one more links the objects.  The library goes to ``build/piml_tpu_torch/<hash>/``
 at the repository root, keyed by a hash of the sources and flags, and is
 built at first use — importing this module builds nothing.
 
@@ -31,7 +32,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parent.parent / "build" / "piml_tpu_torch"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "--fmad=false", "-shared", "-Xcompiler", "-fPIC",
+    "--fmad=false", "-Xcompiler", "-fPIC",
 )
 LIB_NAME = "libpiml_topk.so"
 
@@ -41,10 +42,11 @@ _F = ctypes.c_float
 _SIGNATURES = {
     # rows, n, cols, m, cos_thr, self_pairs, k, out_d, out_i, stream
     "piml_pairwise_topk": (_P, _I, _P, _I, _F, _I, _I, _P, _P, _P),
-    # ws, geo, rows, n_pad, cols, m_band, window, grid_dim, cos_thr,
-    # self_pairs, k, out_d, out_i, stream
-    "piml_banded_topk": (_P, _P, _P, _I, _P, _I, _I, _I, _F, _I, _I, _P, _P,
-                         _P),
+    # ws, geo, geo_cstride, rows, n_pad, channels, cols, m_band,
+    # cols_cstride, window, grid_dim, cos_thr, self_pairs, k, out_d, out_i,
+    # stream
+    "piml_banded_topk": (_P, _P, _I, _P, _I, _I, _P, _I, _I, _I, _I, _F, _I,
+                         _I, _P, _P, _P),
 }
 
 
@@ -86,19 +88,8 @@ class _Library:
         path = out_dir / LIB_NAME
         t0 = time.perf_counter()
         if not path.exists():
-            nvcc = _find_nvcc()
             out_dir.mkdir(parents=True, exist_ok=True)
-            fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
-            os.close(fd)
-            cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, *map(str, sources)]
-            proc = subprocess.run(cmd, capture_output=True, text=True)
-            if proc.returncode != 0:
-                os.unlink(tmp)
-                raise RuntimeError(
-                    "nvcc failed (%d):\n%s\n%s" % (proc.returncode,
-                                                   " ".join(cmd),
-                                                   proc.stderr))
-            os.replace(tmp, path)  # atomic publish
+            _compile(sources, out_dir, path)
         self.build_seconds = time.perf_counter() - t0
         self.path = path
         lib = ctypes.CDLL(str(path))
@@ -107,6 +98,34 @@ class _Library:
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
         return lib
+
+
+def _run_all(cmds) -> None:
+    """Run the commands at the same time; raise on the first failure."""
+    procs = [(cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                    stderr=subprocess.PIPE, text=True))
+             for cmd in cmds]
+    failed = []
+    for cmd, proc in procs:
+        _, err = proc.communicate()
+        if proc.returncode != 0:
+            failed.append("nvcc failed (%d):\n%s\n%s"
+                          % (proc.returncode, " ".join(cmd), err))
+    if failed:
+        raise RuntimeError("\n".join(failed))
+
+
+def _compile(sources, out_dir: Path, path: Path) -> None:
+    """One ``nvcc -c`` per source in parallel, then one link; the library
+    is published atomically under ``path``."""
+    nvcc = _find_nvcc()
+    with tempfile.TemporaryDirectory(dir=out_dir) as tmp:
+        objs = [os.path.join(tmp, src.stem + ".o") for src in sources]
+        _run_all([[nvcc, *NVCC_FLAGS, "-c", "-o", obj, str(src)]
+                  for src, obj in zip(sources, objs)])
+        lib = os.path.join(tmp, LIB_NAME)
+        _run_all([[nvcc, *NVCC_FLAGS, "-shared", "-o", lib, *objs]])
+        os.replace(lib, path)  # atomic publish
 
 
 def _find_nvcc() -> str:

@@ -11,6 +11,13 @@
 // id order).  Work is N * window pair evaluations; the TPU's resident and
 // DMA variants differ only in where the table lives, which on this card
 // is always device memory, read once per tile.
+//
+// Channels: the JAX package vmaps this kernel over the window channels of
+// the BPTT finetune, which batches the pallas_call into one more grid
+// axis.  Here blockIdx.y is the channel.  Rows, window starts and outputs
+// are per channel; the object table and grid geometry are per channel
+// (agent pass: each channel bins its own agents) or shared (obstacle pass:
+// stride 0).  With one channel the launch is the single-frame one.
 #include "topk_common.cuh"
 
 namespace {
@@ -19,22 +26,34 @@ constexpr int kTileN = 128;  // rows per tile: the window arithmetic's unit
 constexpr int kLane = 128;   // window starts are in units of 128 columns
 constexpr int kChunk = 512;  // window columns per shared-memory chunk
 
+// per channel c (blockIdx.y):
 // rows: (n_pad, 8) [x, y, hx, hy, valid, self_id, 0, 0], cell-sorted;
-// cols: (6, m_band) [x; y; valid; oid; cx; cy], cell-sorted;
-// geo: [lo_x, lo_y, cs_x, cs_y]; ws: (n_pad / 128,) window starts / 128
+// cols: (6, m_band) [x; y; valid; oid; cx; cy], cell-sorted, at
+//   c * cols_cstride;
+// geo: [lo_x, lo_y, cs_x, cs_y] at c * geo_cstride;
+// ws: (n_pad / 128,) window starts / 128; out: (n_pad, K)
 template <int K>
 __global__ void __launch_bounds__(kTileN)
 banded_topk_kernel(const int* __restrict__ ws, const float* __restrict__ geo,
-                   const float* __restrict__ rows,
-                   const float* __restrict__ cols, int m_band, int window,
-                   int grid_dim, float cos_thr, int self_pairs,
-                   float* __restrict__ out_d, int* __restrict__ out_i) {
+                   int geo_cstride, const float* __restrict__ rows,
+                   int n_pad, const float* __restrict__ cols, int m_band,
+                   int cols_cstride, int window, int grid_dim, float cos_thr,
+                   int self_pairs, float* __restrict__ out_d,
+                   int* __restrict__ out_i) {
   __shared__ float sx[kChunk];
   __shared__ float sy[kChunk];
   __shared__ float sv[kChunk];
   __shared__ float so[kChunk];
   __shared__ float scx[kChunk];
   __shared__ float scy[kChunk];
+
+  const size_t c = blockIdx.y;
+  ws += c * (n_pad / kTileN);
+  geo += c * geo_cstride;
+  rows += c * n_pad * piml::kRowStride;
+  cols += c * cols_cstride;
+  out_d += c * n_pad * K;
+  out_i += c * n_pad * K;
 
   const int r = blockIdx.x * kTileN + threadIdx.x;
   const float* row = rows + static_cast<size_t>(r) * piml::kRowStride;
@@ -89,21 +108,21 @@ banded_topk_kernel(const int* __restrict__ ws, const float* __restrict__ geo,
 }  // namespace
 
 extern "C" int piml_banded_topk(const int* ws, const float* geo,
-                                const float* rows, int n_pad,
-                                const float* cols, int m_band, int window,
+                                int geo_cstride, const float* rows,
+                                int n_pad, int channels, const float* cols,
+                                int m_band, int cols_cstride, int window,
                                 int grid_dim, float cos_thr, int self_pairs,
                                 int k, float* out_d, int* out_i,
                                 void* stream) {
-  if (n_pad <= 0) return static_cast<int>(cudaSuccess);
-  if (n_pad % kTileN != 0 || window <= 0)
+  if (n_pad <= 0 || channels <= 0) return static_cast<int>(cudaSuccess);
+  if (n_pad % kTileN != 0 || window <= 0 || channels > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid(n_pad / kTileN);
+  const dim3 grid(n_pad / kTileN, channels);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define PIML_LAUNCH_K2(K)                                                  \
-  banded_topk_kernel<K><<<grid, kTileN, 0, s>>>(ws, geo, rows, cols,       \
-                                                m_band, window, grid_dim,  \
-                                                cos_thr, self_pairs,       \
-                                                out_d, out_i)
+  banded_topk_kernel<K><<<grid, kTileN, 0, s>>>(                          \
+      ws, geo, geo_cstride, rows, n_pad, cols, m_band, cols_cstride,       \
+      window, grid_dim, cos_thr, self_pairs, out_d, out_i)
   PIML_DISPATCH_K(k, PIML_LAUNCH_K2)
 #undef PIML_LAUNCH_K2
   return static_cast<int>(cudaGetLastError());

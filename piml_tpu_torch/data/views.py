@@ -1,15 +1,17 @@
-"""The frame-keyed dataset view of one scene.
+"""The frame-keyed dataset view of one scene, and its windowed view.
 
 Counterpart of ``piml_tpu/data/views.py`` (reference: src/data/data.py
-``TimeIndexedPedData``, :746-863): model inputs, labels, masks and the raw
-kinematics a rollout needs, as tensors on the scene's device.  There is no
-on-disk feature cache: the feature pass is rebuilt on every call.
+``TimeIndexedPedData``, :746-863, and ``ChanneledPedData``, :1046-1160):
+model inputs, labels, masks and the raw kinematics a rollout needs, as
+tensors on the scene's device; :func:`to_channeled` cuts them into the
+window channels the BPTT finetune trains on.  There is no on-disk feature
+cache: the feature pass is rebuilt on every call.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict
+from typing import Any, Dict, Sequence, Union
 
 import torch
 
@@ -111,12 +113,13 @@ def _relative_features_chunked(scene: Scene, ncfg: NeighborConfig,
     return tuple(torch.cat(parts, dim=0) for parts in zip(*outs))
 
 
-@torch.inference_mode()
+@torch.no_grad()
 def make_time_indexed(cfg: PIMLConfig, scene: Scene,
                       time_chunk: int = 0) -> TimeIndexedData:
     """Build the supervised frame-keyed view (reference: data.py:746-834).
     ``time_chunk = 0`` picks a chunk that keeps the per-chunk pair work
-    near ``_PAIR_BUDGET`` elements."""
+    near ``_PAIR_BUDGET`` elements.  Runs without autograd, not in
+    inference mode: the finetune's graph saves these tensors."""
     ncfg = neighbor_config(cfg)
     if time_chunk == 0:
         m = max(scene.num_pedestrians, int(scene.obstacles.shape[0]), 128)
@@ -153,3 +156,98 @@ def make_time_indexed(cfg: PIMLConfig, scene: Scene,
         waypoints=scene.waypoints, obstacles=scene.obstacles,
         desired_speed=ds, meta_data=scene.meta_data,
     )
+
+
+# ---------------------------------------------------------------------------
+# channeled (windowed) view
+# ---------------------------------------------------------------------------
+
+def window_slice(x: torch.Tensor, stride: int, mode: str) -> torch.Tensor:
+    """``(T, ...) → (C, stride, ...)`` windows (reference: data.py:1071-1091).
+
+    - ``'slice'``: C = T − stride overlapping windows, window c = frames
+      [c, c+stride);
+    - ``'split'``: C = T // stride disjoint chunks.
+    """
+    T = x.shape[0]
+    if mode == "slice":
+        if T <= stride:
+            raise ValueError("stride must be < #total time steps "
+                             "(data.py:1100)")
+        idx = (torch.arange(T - stride, device=x.device)[:, None]
+               + torch.arange(stride, device=x.device)[None, :])
+        return x[idx]
+    if mode == "split":
+        step = T // stride
+        return x[: step * stride].reshape((step, stride) + x.shape[1:])
+    raise NotImplementedError(mode)
+
+
+# the fields that gain the leading window-channel axis; the others
+# (abnormal_mask, dest_num, waypoints, obstacles, desired_speed) are
+# per-scene constants shared by the channels
+CHANNEL_FIELDS = (
+    "ped_features", "obs_features", "self_features", "labels",
+    "mask_p", "mask_v", "mask_a", "mask_p_pred", "mask_v_pred",
+    "mask_a_pred", "position", "velocity", "acceleration", "destination",
+    "dest_idx",
+)
+
+
+@dataclasses.dataclass
+class ChanneledData:
+    """Windowed rollout-training view (reference: data.py:1046-1160): the
+    ``CHANNEL_FIELDS`` carry a leading channel axis C, ``(C, t, N, ...)``."""
+
+    ped_features: torch.Tensor    # (C, t, N, k1, 6)
+    obs_features: torch.Tensor
+    self_features: torch.Tensor
+    labels: torch.Tensor
+    mask_p: torch.Tensor
+    mask_v: torch.Tensor
+    mask_a: torch.Tensor
+    mask_p_pred: torch.Tensor
+    mask_v_pred: torch.Tensor
+    mask_a_pred: torch.Tensor
+    position: torch.Tensor
+    velocity: torch.Tensor
+    acceleration: torch.Tensor
+    destination: torch.Tensor
+    dest_idx: torch.Tensor
+    abnormal_mask: torch.Tensor   # (N,)
+    dest_num: torch.Tensor        # (N,)
+    waypoints: torch.Tensor       # (D, N, 2)
+    obstacles: torch.Tensor
+    desired_speed: torch.Tensor   # (N,)
+    meta_data: Dict[str, Any] = dataclasses.field(default_factory=dict)
+
+    @property
+    def num_channels(self) -> int:
+        return self.ped_features.shape[0]
+
+    @property
+    def num_frames(self) -> int:
+        return self.ped_features.shape[1]
+
+    @property
+    def time_unit(self) -> float:
+        return float(self.meta_data["time_unit"])
+
+    def slice_channels(self, idx: Union[Sequence[int], torch.Tensor]
+                       ) -> "ChanneledData":
+        """The windows ``idx`` (in that order) of every channel field."""
+        idx = torch.as_tensor(idx, dtype=torch.long,
+                              device=self.ped_features.device)
+        return dataclasses.replace(
+            self, **{f: getattr(self, f)[idx] for f in CHANNEL_FIELDS})
+
+
+def to_channeled(data: TimeIndexedData, stride: int = 25,
+                 mode: str = "slice") -> ChanneledData:
+    """Cut a scene's view into ``stride``-frame window channels."""
+    return ChanneledData(
+        **{f: window_slice(getattr(data, f), stride, mode)
+           for f in CHANNEL_FIELDS},
+        abnormal_mask=data.abnormal_mask, dest_num=data.dest_num,
+        waypoints=data.waypoints, obstacles=data.obstacles,
+        desired_speed=data.desired_speed, meta_data=data.meta_data)

@@ -3,6 +3,7 @@ from piml_tpu_torch.engine.rollout import (  # noqa: F401
     EngineState,
     SpawnFrame,
     StepOutputs,
+    batched_rollout,
     init_state,
     make_features_fn,
     make_step,
@@ -13,8 +14,10 @@ from piml_tpu_torch.engine.rollout import (  # noqa: F401
 from piml_tpu_torch.engine.simulator import (  # noqa: F401
     RolloutMetrics,
     RolloutResult,
+    TrainingRolloutLoss,
     engine_config,
     eval_rollout,
     evaluate_rollouts,
     post_process,
+    training_rollout_loss,
 )

@@ -11,16 +11,22 @@ src/models/simulators.py:595-652).  Per frame:
 - newly appearing agents teleport in from ground truth;
 - the neighbour features are rebuilt for the next frame.
 
-The loop is plain Python under ``torch.inference_mode()``; the banded
-selector's exactness flag is read on the host once per pass.
+The frame loop is plain Python; the banded selector's exactness flag is
+read on the host once per pass.  :func:`rollout` runs it under
+``torch.inference_mode()`` (evaluation); :func:`batched_rollout` runs the
+same step on a ``(C, N, ...)`` batch of window channels with autograd on
+(the BPTT finetune), optionally checkpointing each frame.  The JAX
+package's ``scan`` carries become the loop's variables; ``vmap`` over
+channels becomes the leading axis of the state.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, List, NamedTuple
+from typing import Callable, List, NamedTuple, Optional, Sequence
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from piml_tpu_torch.physics import (
     NeighborConfig,
@@ -43,6 +49,9 @@ class EngineConfig:
     track_collisions: bool = False  # per-step contact counts
     collision_threshold: float = 0.5
     track_collision_labels: bool = False  # pinnsf_bm multitask bookkeeping
+    remat: bool = True              # checkpoint each frame under autograd
+                                    # (batched_rollout; jax.checkpoint in
+                                    # the JAX package)
 
 
 @dataclasses.dataclass
@@ -73,7 +82,7 @@ class StepOutputs(NamedTuple):
     hard_collisions: torch.Tensor
     coll_pred: torch.Tensor         # (N, k1) per-edge collision predictions
     true_coll: torch.Tensor         # (N, k1) labels recomputed from features
-    msg_l1: torch.Tensor            # scalar sum |ped_msgs|
+    msg_l1: torch.Tensor            # sum |ped_msgs| (per channel)
 
 
 class SpawnFrame(NamedTuple):
@@ -98,7 +107,9 @@ def select_waypoint(waypoints: torch.Tensor,
 def make_features_fn(cfg: EngineConfig, obstacles: torch.Tensor,
                      desired_speed: torch.Tensor, obstacle_index=None):
     """The per-step feature rebuild ``(p, v, a, dest, hist_v, k1, k2) ->
-    (ped_f, obs_f, self_f)`` with a single-frame heading."""
+    (ped_f, obs_f, self_f)`` with a single-frame heading, for ``(N, 2)``
+    frames or ``(C, N, 2)`` batches of frames (the channel-batched banded
+    route of ``relative_features``)."""
 
     def features_for(p, v, a, dest, hist_v, k1, k2):
         # k1/k2 keep the neighbour axes at the dataset-seeded widths
@@ -107,8 +118,9 @@ def make_features_fn(cfg: EngineConfig, obstacles: torch.Tensor,
         ped_f, obs_f, dest_f = relative_features(
             p, v, a, dest, obstacles, ncfg,
             heading=heading_direction(v0, time_axis=False),
-            obstacle_index=obstacle_index)
-        self_f = torch.cat([dest_f, hist_v, a, desired_speed], dim=-1)
+            obstacle_index=obstacle_index, batched=p.ndim == 3)
+        ds = desired_speed.expand(p.shape[:-1] + desired_speed.shape[-1:])
+        self_f = torch.cat([dest_f, hist_v, a, ds], dim=-1)
         return ped_f, obs_f, self_f
 
     return features_for
@@ -117,25 +129,43 @@ def make_features_fn(cfg: EngineConfig, obstacles: torch.Tensor,
 def make_step(model: Callable, cfg: EngineConfig, waypoints: torch.Tensor,
               dest_num: torch.Tensor, obstacles: torch.Tensor,
               desired_speed: torch.Tensor, obstacle_index=None):
-    """Build the step ``(state, spawn) -> (state, outputs)``; ``model`` maps
-    ``(ped_f, obs_f, self_f)`` to a ``ModelOutput``."""
+    """Build the step ``(state, spawn, seeds=None) -> (state, outputs)``
+    for an ``(N, ...)`` state or a ``(C, N, ...)`` batch of window
+    channels; ``model`` maps ``(ped_f, obs_f, self_f[, rng])`` to a
+    ``ModelOutput``.
+
+    ``seeds`` (one int per channel) makes the step stochastic: the model's
+    dropout draws from generators seeded with them (the JAX package's
+    per-frame, per-channel dropout keys)."""
     dt = cfg.time_unit
     features_for = make_features_fn(cfg, obstacles, desired_speed,
                                     obstacle_index=obstacle_index)
 
-    def step(state: EngineState, spawn: SpawnFrame):
+    def step(state: EngineState, spawn: SpawnFrame,
+             seeds: Optional[Sequence[int]] = None):
         present = (~torch.isnan(state.p[..., 0])).to(state.p.dtype)
 
-        out = model(state.ped_f, state.obs_f, state.self_f)
+        if seeds is None:
+            out = model(state.ped_f, state.obs_f, state.self_f)
+        else:
+            rng = [torch.Generator(device=state.p.device).manual_seed(int(s))
+                   for s in seeds]
+            out = model(state.ped_f, state.obs_f, state.self_f, rng)
         a_next = out.pred_acc
-        msg_l1 = (out.ped_msgs.abs().sum() if out.ped_msgs is not None
-                  else torch.zeros((), device=state.p.device))
+        # one sum per frame (per channel for a batched state)
+        lead = state.p.ndim - 2
+        msg_l1 = (out.ped_msgs.abs().flatten(lead).sum(-1)
+                  if out.ped_msgs is not None
+                  else torch.zeros(state.p.shape[:lead],
+                                   device=state.p.device))
 
         if cfg.track_collisions:
-            coll = collision_detection_single_frame(state.p,
+            # contact counts carry no gradient (simulators.py:708)
+            p_sg = state.p.detach()
+            coll = collision_detection_single_frame(p_sg,
                                                     cfg.collision_threshold)
             hard = collision_detection_single_frame(
-                state.p, cfg.collision_threshold / 2)
+                p_sg, cfg.collision_threshold / 2)
         else:
             coll = torch.zeros_like(present)
             hard = torch.zeros_like(present)
@@ -201,6 +231,15 @@ def init_state(p, v, a, dest, dest_idx, ped_f, obs_f, self_f) -> EngineState:
         hist_v=self_f[..., 2:-3], ped_f=ped_f, obs_f=obs_f, self_f=self_f)
 
 
+def _obstacle_index(cfg: EngineConfig, state: EngineState,
+                    obstacles: torch.Tensor):
+    """The obstacle table is static: build the banded selector's index
+    once per rollout, with the state-seeded neighbour widths."""
+    ncfg_k = cfg.neighbor._replace(topk_ped=state.ped_f.shape[-2],
+                                   topk_obs=state.obs_f.shape[-2])
+    return prepare_obstacle_index(state.p.shape[-2], obstacles, ncfg_k)
+
+
 @torch.inference_mode()
 def rollout(model: Callable, cfg: EngineConfig, state: EngineState,
             spawns: SpawnFrame, waypoints: torch.Tensor,
@@ -208,18 +247,52 @@ def rollout(model: Callable, cfg: EngineConfig, state: EngineState,
             desired_speed: torch.Tensor):
     """Run ``T_roll = spawns.new.shape[0]`` steps from ``state``; returns
     ``(final_state, StepOutputs)`` with time-major outputs."""
-    # the obstacle table is static: build the banded selector's index once
-    ncfg_k = cfg.neighbor._replace(topk_ped=state.ped_f.shape[-2],
-                                   topk_obs=state.obs_f.shape[-2])
-    obstacle_index = prepare_obstacle_index(state.p.shape[-2], obstacles,
-                                            ncfg_k)
     step = make_step(model, cfg, waypoints, dest_num, obstacles,
-                     desired_speed, obstacle_index=obstacle_index)
+                     desired_speed,
+                     obstacle_index=_obstacle_index(cfg, state, obstacles))
     outs: List[StepOutputs] = []
     for t in range(spawns.new.shape[0]):
         state, o = step(state, SpawnFrame(*(x[t] for x in spawns)))
         outs.append(o)
     return state, StepOutputs(*(torch.stack(x) for x in zip(*outs)))
+
+
+def batched_rollout(model: Callable, cfg: EngineConfig, state: EngineState,
+                    spawns: SpawnFrame, waypoints: torch.Tensor,
+                    dest_num: torch.Tensor, obstacles: torch.Tensor,
+                    desired_speed: torch.Tensor,
+                    step_seeds: Optional[torch.Tensor] = None):
+    """Channel-batched rollout for the BPTT finetune: ``state`` is
+    ``(C, N, ...)``, ``spawns`` channel-leading ``(C, T, ...)``; returns
+    ``(final_state, StepOutputs)`` with channel-leading ``(C, T, ...)``
+    outputs, like the JAX package's ``batched_rollout``.
+
+    Each frame runs the step on the whole batch, so the feature pass is one
+    batched call per frame (one channel-batched K2 launch per pass on the
+    card, one exactness decision for the batch).  Autograd follows the
+    caller's mode.  ``cfg.remat`` checkpoints each frame: only the state
+    between frames stays alive, and the backward recomputes the frame.
+    ``step_seeds`` ``(C, T)``: the frame's dropout seeds, drawn before the
+    loop; the frame builds its generators from them inside the
+    checkpointed body, so a recomputed frame draws the same masks (the
+    checkpoint restores only the global RNG, which dropout never reads).
+    """
+    step = make_step(model, cfg, waypoints, dest_num, obstacles,
+                     desired_speed,
+                     obstacle_index=_obstacle_index(cfg, state, obstacles))
+    remat = cfg.remat and torch.is_grad_enabled()
+    outs: List[StepOutputs] = []
+    for t in range(spawns.new.shape[1]):
+        spawn = SpawnFrame(*(x[:, t] for x in spawns))
+        seeds = None if step_seeds is None else step_seeds[:, t].tolist()
+        if remat:
+            state, o = checkpoint(step, state, spawn, seeds,
+                                  use_reentrant=False,
+                                  preserve_rng_state=False)
+        else:
+            state, o = step(state, spawn, seeds)
+        outs.append(o)
+    return state, StepOutputs(*(torch.stack(x, dim=1) for x in zip(*outs)))
 
 
 def spawn_frames_from_scene(position, velocity, acceleration, destination,

@@ -1,9 +1,9 @@
-"""Evaluation rollouts and their metrics.
+"""Evaluation rollouts, their metrics, and the training loss.
 
 Counterpart of ``piml_tpu/engine/simulator.py`` (reference:
-src/models/simulators.py ``get_multiple_rollouts`` :556 and
-``test_multiple_rollouts`` :465).  The differentiable training rollout is
-not ported yet.
+src/models/simulators.py ``get_multiple_rollouts`` :556,
+``test_multiple_rollouts`` :465 and ``test_multiple_rollouts_for_training``
+:659): thin assemblies over the rollout engine.
 """
 
 from __future__ import annotations
@@ -14,14 +14,20 @@ from typing import Callable, NamedTuple, Optional
 import torch
 
 from piml_tpu_torch.config import PIMLConfig
-from piml_tpu_torch.data.views import TimeIndexedData, neighbor_config
+from piml_tpu_torch.data.views import (ChanneledData, TimeIndexedData,
+                                       neighbor_config)
 from piml_tpu_torch.engine.rollout import (
     EngineConfig,
+    SpawnFrame,
+    batched_rollout,
     init_state,
     rollout,
     spawn_frames_from_scene,
 )
 from piml_tpu_torch.metrics import collision_count, mae_with_time_mask
+from piml_tpu_torch.physics import collision_detection_single_frame
+from piml_tpu_torch.physics.features import _GATE
+from piml_tpu_torch.train import losses
 
 
 def engine_config(cfg: PIMLConfig, *, retire: bool, track_collisions: bool,
@@ -149,3 +155,163 @@ def evaluate_rollouts(model: Callable, cfg: PIMLConfig, datasets, *,
     return RolloutMetrics(
         loss=loss_sum / n_rows, mse=mse_sum / n_rows, mae=mae_sum / n_rows,
         ot=None, mmd=None, collision=coll_sum, hard_collision=hard_sum)
+
+
+# ---------------------------------------------------------------------------
+# differentiable training rollout (simulators.py:659-832)
+# ---------------------------------------------------------------------------
+
+class TrainingRolloutLoss(NamedTuple):
+    loss: torch.Tensor
+    mse_loss: torch.Tensor
+    collision_loss: torch.Tensor
+    hard_collision_loss: torch.Tensor
+    collision_pred_loss: torch.Tensor
+    collision_pred_acc: torch.Tensor
+    reg_loss: torch.Tensor
+    collision_count: torch.Tensor
+    hard_collision_count: torch.Tensor
+
+
+def _channel_spawns(batch: ChanneledData) -> SpawnFrame:
+    """Each window's teleport-in schedule from its own frame 0,
+    channel-leading ``(C, T, ...)``."""
+    time_major = spawn_frames_from_scene(
+        *(x.movedim(1, 0) for x in (
+            batch.position, batch.velocity, batch.acceleration,
+            batch.destination, batch.dest_idx, batch.self_features,
+            batch.mask_p, batch.mask_p_pred)), 0)
+    return SpawnFrame(*(x.movedim(0, 1) for x in time_major))
+
+
+def training_rollout_loss(model: Callable, cfg: PIMLConfig,
+                          batch: ChanneledData,
+                          generator: Optional[torch.Generator] = None
+                          ) -> TrainingRolloutLoss:
+    """The finetune loss through the differentiable rollout of every
+    window channel (simulators.py:781-832): time-decayed rollout MSE,
+    collision-gated perpendicular penalties (v0 / v2 with the abnormal
+    mask), the optional teacher acceleration MSE (reverse decay), BCE of
+    the collision head over live slots, and L1 message regularisation.
+    Call ``.loss.backward()`` for the gradients.
+
+    ``generator``: when given, dropout is live — one seed per frame and
+    channel is drawn from it before the rollout (the reference finetunes
+    under ``model.train()``, simulators.py:295).
+
+    Routing is the JAX package's, with "TPU" read as "CUDA tensor": at
+    dense N on the card the feature pass takes the channel-batched banded
+    route (``batched_rollout``'s one exactness decision per frame);
+    otherwise the banded selector is off.  The port has no ``vmap``, so
+    both cases run the same channel-batched loop.  ``cfg.bptt_unroll`` is
+    a ``lax.scan`` unroll factor and has no meaning for a Python loop: it
+    is accepted and ignored.
+    """
+    C, T = batch.num_channels, batch.num_frames
+    n_agents = batch.position.shape[2]
+    on_card = batch.position.is_cuda
+    remat = cfg.remat_features
+    if remat is None:
+        # the JAX package's auto policy: small batches run unrematerialized
+        # on the accelerator (launch-bound), everything else rematerializes
+        per_dev = C / max(cfg.n_devices, 1)
+        remat = not (per_dev * n_agents <= 16384 and on_card)
+    ecfg = dataclasses.replace(
+        engine_config(cfg, retire=False, track_collisions=True,
+                      track_labels=cfg.collision_pred_weight > 0),
+        remat=remat)
+    use_batched = cfg.channel_batched_bptt
+    if use_batched is None:
+        use_batched = (ecfg.neighbor.use_grid_topk
+                       and n_agents * n_agents >= _GATE and on_card)
+    if not use_batched:
+        ecfg = dataclasses.replace(
+            ecfg, neighbor=ecfg.neighbor._replace(use_grid_topk=False))
+
+    seeds = None
+    if generator is not None:
+        seeds = torch.randint(0, 2 ** 62, (C, T), generator=generator)
+    state0 = init_state(
+        batch.position[:, 0], batch.velocity[:, 0],
+        batch.acceleration[:, 0], batch.destination[:, 0],
+        batch.dest_idx[:, 0], batch.ped_features[:, 0],
+        batch.obs_features[:, 0], batch.self_features[:, 0])
+    _, outs = batched_rollout(
+        model, ecfg, state0, _channel_spawns(batch), batch.waypoints,
+        batch.dest_num, batch.obstacles, batch.desired_speed[:, None],
+        step_seeds=seeds)
+
+    mask_pred = batch.mask_p_pred                                # C, T, N
+    # frames with no predictable agents record nothing (simulators.py:707)
+    frame_active = (mask_pred.sum(dim=-1, keepdim=True) > 0).to(
+        outs.p.dtype)                                            # C, T, 1
+    pred_rows = (mask_pred == 1)[..., None]
+
+    def masked(x):
+        x = torch.where(pred_rows, x, 0.0)
+        return torch.where(torch.isnan(x), 0.0, x)
+
+    p_res = masked(outs.p)
+    labels_p = masked(batch.labels[..., :2])
+    mse = losses.multiple_rollout_mse_loss(p_res, labels_p, cfg.time_decay,
+                                           "sum")
+    loss = mse
+
+    reg = (outs.msg_l1 * frame_active[..., 0]).sum() * cfg.reg_weight
+    if cfg.reg_weight > 0:
+        loss = loss + reg
+
+    collisions = outs.collisions * frame_active
+    hard_collisions = outs.hard_collisions * frame_active
+
+    # label collisions from the ground-truth next-step positions
+    lab_pos = batch.labels[..., :2]
+    label_coll = collision_detection_single_frame(
+        lab_pos, cfg.collision_threshold) * frame_active
+    label_hard = collision_detection_single_frame(
+        lab_pos, cfg.collision_threshold / 2) * frame_active
+    if cfg.new_collision_loss_flag:
+        any_lc = label_coll.sum(dim=-2, keepdim=True) > 0        # C, 1, N
+        any_lh = label_hard.sum(dim=-2, keepdim=True) > 0
+        collisions = torch.where(any_lc, 0.0, collisions)
+        hard_collisions = torch.where(any_lh, 0.0, hard_collisions)
+
+    zero = torch.zeros((), device=outs.p.device)
+    coll_loss = hard_loss = zero
+    if cfg.collision_loss_weight > 0:
+        abnormal = (batch.abnormal_mask
+                    if cfg.collision_loss_version == "v2" else None)
+        coll_loss = losses.multiple_rollout_collision_loss(
+            p_res, labels_p, cfg.time_decay, collisions, "sum", abnormal
+        ) * cfg.collision_loss_weight
+        hard_loss = losses.multiple_rollout_collision_loss(
+            p_res, labels_p, cfg.time_decay, hard_collisions, "sum", abnormal
+        ) * cfg.collision_loss_weight * cfg.hard_collision_penalty
+        loss = loss + coll_loss + hard_loss
+
+    if cfg.teacher_weight > 0:
+        a_mse = losses.multiple_rollout_mse_loss(
+            masked(outs.a), masked(batch.labels[..., 4:6]), cfg.time_decay,
+            "sum", reverse=True)
+        loss = loss + a_mse * cfg.teacher_weight
+
+    cp_loss = cp_acc = zero
+    if cfg.collision_pred_weight > 0:
+        # only live slots reach the BCE: the reference's dynamic tensors
+        # hold live agents only (simulators.py:781-832)
+        live = outs.mask * frame_active                          # C, T, N
+        pred_c = outs.coll_pred * live[..., None]
+        true_c = outs.true_coll * live[..., None]
+        cp_loss = losses.binary_cross_entropy(
+            pred_c, true_c, "sum") * cfg.collision_pred_weight
+        n_live = torch.clamp_min(live.sum(), 1.0) * outs.coll_pred.shape[-1]
+        cp_acc = ((torch.round(pred_c) == true_c).to(pred_c.dtype)
+                  * live[..., None]).sum() / n_live
+        loss = loss + cp_loss
+
+    return TrainingRolloutLoss(
+        loss=loss, mse_loss=mse, collision_loss=coll_loss,
+        hard_collision_loss=hard_loss, collision_pred_loss=cp_loss,
+        collision_pred_acc=cp_acc, reg_loss=reg,
+        collision_count=collisions.sum(),
+        hard_collision_count=hard_collisions.sum())

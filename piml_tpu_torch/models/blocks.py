@@ -8,11 +8,18 @@ module names (``dense_0``, ``block_0``, ``MLP_0``), so a flax parameter path
 ``ResDNN(chain=False)`` reproduces the reference quirk that each block
 reads the original input, so only the last block's output survives
 (model.py:115-119): it builds that one block only.
+
+Dropout is live only when a forward is given random generators (the JAX
+package's ``deterministic=False`` with a dropout key), one per slice of
+the input's leading axis (the window channels of the finetune): its masks
+come from those ``torch.Generator``s, never from the global RNG, so a
+frame that activation checkpointing recomputes draws the same masks
+again.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Sequence
+from typing import Callable, Optional, Sequence
 
 import torch
 from torch import nn
@@ -70,9 +77,27 @@ class ResBlock(nn.Module):
         return x + self.MLP_0(x)
 
 
+Rng = Optional[Sequence[torch.Generator]]
+
+
+def dropout(x: torch.Tensor, p: float, rng: Rng) -> torch.Tensor:
+    """Inverted dropout as flax's ``nn.Dropout``: keep with probability
+    ``1 − p`` and scale by ``1 / (1 − p)``.  ``rng``: one generator per
+    slice of the leading axis, each slice's mask from its own stream;
+    None = identity."""
+    if rng is None or p <= 0:
+        return x
+    if len(rng) != x.shape[0]:
+        raise ValueError(f"dropout: {len(rng)} generators for a leading "
+                         f"axis of {x.shape[0]}")
+    keep_p = torch.full(x.shape[1:], 1.0 - p, device=x.device)
+    keep = torch.stack([torch.bernoulli(keep_p, generator=g) for g in rng])
+    return torch.where(keep > 0, x / (1.0 - p), 0.0)
+
+
 class ResDNN(nn.Module):
     """Residual MLP processor (reference: model.py:82-119); dropout on the
-    output, live only in ``train()`` mode."""
+    output, live when ``forward`` is given generators."""
 
     def __init__(self, in_features: int,
                  hidden_units: Sequence[Sequence[int]],
@@ -84,12 +109,10 @@ class ResDNN(nn.Module):
         self.n = len(blocks)
         for i, h in enumerate(blocks):
             self.add_module(f"block_{i}", ResBlock(in_features, h, activation))
-        self.dropout = nn.Dropout(dropout) if dropout > 0 else None
+        self.p = dropout
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, rng: Rng = None) -> torch.Tensor:
         out = x
         for i in range(self.n):
             out = getattr(self, f"block_{i}")(out if self.chain else x)
-        if self.dropout is not None:
-            out = self.dropout(out)
-        return out
+        return dropout(out, self.p, rng)

@@ -6,10 +6,12 @@ a flax leaf ``a/b/dense_0/kernel`` becomes ``a.b.dense_0.weight``.  A flax
 ``(out, in)``, hence the transpose.
 
 ``fixtures/pinnsf_bm_gc_finetuned.npz`` holds the trained ``pinnsf_bm``
-weights of ``bench_fixtures/pinnsf_bm_gc_finetuned.msgpack`` as flat
-numpy arrays (keys like ``ped_encoder/dense_0/kernel``), written once with
-``np.savez(path, **flatten_tree(msgpack_restore(blob)["params"]))`` so
-that hosts without flax or msgpack can load them.
+weights of ``bench_fixtures/pinnsf_bm_gc_finetuned.msgpack`` and
+``fixtures/pinnsf_bm_gc_pretrained.npz`` the pretrained ones the finetune
+warm-starts from (``bench_fixtures/pinnsf_bm_gc_pretrained.msgpack``), as
+flat numpy arrays (keys like ``ped_encoder/dense_0/kernel``), each written
+once with ``np.savez(path, **flatten_tree(msgpack_restore(blob)["params"]))``
+so that hosts without flax or msgpack can load them.
 """
 
 from __future__ import annotations
@@ -21,8 +23,10 @@ from typing import Any, Dict, Mapping
 import numpy as np
 import torch
 
-FIXTURE = os.path.join(os.path.dirname(os.path.dirname(__file__)),
-                       "fixtures", "pinnsf_bm_gc_finetuned.npz")
+_FIXTURES = os.path.join(os.path.dirname(os.path.dirname(__file__)),
+                         "fixtures")
+FIXTURE = os.path.join(_FIXTURES, "pinnsf_bm_gc_finetuned.npz")
+PRETRAINED = os.path.join(_FIXTURES, "pinnsf_bm_gc_pretrained.npz")
 
 
 def flatten_tree(tree: Mapping[str, Any], prefix: str = ""
@@ -70,7 +74,8 @@ def params_from_flax(tree: Mapping[str, Any]) -> "OrderedDict[str, torch.Tensor]
 
 
 def load_fixture(path: str = FIXTURE) -> "OrderedDict[str, torch.Tensor]":
-    """The committed trained ``pinnsf_bm`` weights as a ``state_dict``."""
+    """Committed ``pinnsf_bm`` weights as a ``state_dict``: the finetuned
+    ones by default, ``PRETRAINED`` for the finetune's warm start."""
     with np.load(path) as z:
         flat = {k: z[k] for k in z.files}
     return params_from_flax(unflatten_tree(flat))

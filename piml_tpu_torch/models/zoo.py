@@ -6,7 +6,8 @@ self_features (..., 7)) → ModelOutput``, with ``self_features`` =
 ``[dest_vec(2), hist_velocity(2h), cur_acc(2), desired_speed(1)]``.
 Only the ``pinnsf_bm`` variant (per-edge bottleneck forces plus the
 decoder collision head, reference model.py:1138) is ported so far; the
-other variants raise in :func:`build_model`.
+other variants raise in :func:`build_model` and
+:func:`build_finetune_model`.
 """
 
 from __future__ import annotations
@@ -17,7 +18,7 @@ from typing import Any, NamedTuple, Optional
 import torch
 from torch import nn
 
-from piml_tpu_torch.models.blocks import MLP, ResDNN, activation_fn
+from piml_tpu_torch.models.blocks import MLP, ResDNN, Rng, activation_fn
 
 
 class ModelOutput(NamedTuple):
@@ -101,7 +102,8 @@ class PINNSF(nn.Module):
     force for agents and obstacles, summed over edges, plus the analytic
     goal force; a sigmoid collision head reads the agent decoder
     embeddings (reference: model.py:1062 bottleneck, :1138 pinnsf_bm).
-    Dropout lives on the processors' outputs and is off in ``eval()``."""
+    Dropout lives on the processors' outputs and is drawn from ``rng``
+    (see ``models/blocks.py``); without it the forward is deterministic."""
 
     def __init__(self, spec: ModelSpec):
         super().__init__()
@@ -123,19 +125,19 @@ class PINNSF(nn.Module):
                                   (s.dec_units[-1], 1))
 
     def forward(self, ped_features: torch.Tensor, obs_features: torch.Tensor,
-                self_features: torch.Tensor) -> ModelOutput:
+                self_features: torch.Tensor, rng: Rng = None) -> ModelOutput:
         s = self.spec
         if self_features.shape[-1] != 7:
             raise ValueError("PINN models take 7 self features "
                              "(no historical velocities; model.py:763)")
         ped_emb = self.ped_decoder(
-            self.ped_processor(self.ped_encoder(ped_features)))
+            self.ped_processor(self.ped_encoder(ped_features), rng))
         ped_msgs = self.ped_predictor(ped_emb)                  # ..., k1, 2
         pred_acc = ped_msgs.sum(dim=-2)
         obs_msgs = None
         if s.obs_feature_dim > 0:
             obs_emb = self.obs_decoder(
-                self.obs_processor(self.obs_encoder(obs_features)))
+                self.obs_processor(self.obs_encoder(obs_features), rng))
             obs_msgs = self.obs_predictor(obs_emb)
             pred_acc = pred_acc + obs_msgs.sum(dim=-2)
         pred_acc = pred_acc + goal_acceleration(self_features, s.tau,
@@ -151,3 +153,19 @@ def build_model(spec: ModelSpec) -> nn.Module:
         return PINNSF(spec)
     raise NotImplementedError(
         f"model {spec.name!r} is not ported to PyTorch yet")
+
+
+def build_finetune_model(spec: ModelSpec) -> nn.Module:
+    """Finetune registry (src/models/simulators.py:78-102): ``pinnsf_bm``
+    finetunes the model it pretrained.  ``base`` and ``pinnsf_res`` swap in
+    corrector-equipped models, which are not ported yet."""
+    if spec.name in ("base", "pinnsf_res"):
+        raise NotImplementedError(
+            f"finetune model {spec.name!r} is not ported to PyTorch yet")
+    return build_model(spec)
+
+
+def pretrain_model_name(name: str) -> str:
+    """Pretraining uses plain PINNSF when the CLI asks for pinnsf_res
+    (src/models/simulators.py:44-45)."""
+    return "pinnsf" if name == "pinnsf_res" else name

@@ -23,6 +23,16 @@ Host side (plain tensor code, as in the JAX package):
    flag on the host once per frame and recomputes with the dense path
    when it is false.
 
+:func:`topk_neighbors_banded_batched` runs C frames (the window channels
+of the BPTT finetune) through ONE launch with a channel grid axis, as
+``jax.vmap`` of the JAX selector batches its ``pallas_call``; steps 1, 2
+and 4 run per channel on the host side.
+
+Selection carries no gradient: the selectors and the plain version run
+without autograd (the JAX package's ``lax.stop_gradient`` at the kernel
+inputs), so gradients flow only through the neighbour states gathered
+afterwards.
+
 On the card the kernel is bound by its N · window pair arithmetic; the
 window (~1.8k columns for agents at N = 12,685) replaces K1's N columns.
 """
@@ -89,6 +99,7 @@ def m_band(m: int, window: int) -> int:
     return _round_up(max(m, LANE), LANE) + window
 
 
+@torch.no_grad()
 def build_object_index(objects: torch.Tensor, grid_dim: int,
                        window: int) -> ObjectIndex:
     """Cell-sort an object table into the kernel's column layout."""
@@ -109,12 +120,24 @@ def build_object_index(objects: torch.Tensor, grid_dim: int,
     return ObjectIndex(cols=cols, offsets=offsets, lo=lo, cs=cs, order=order)
 
 
+@torch.no_grad()
 def banded_topk_plain(ws: torch.Tensor, geo: torch.Tensor, rows: torch.Tensor,
                       cols: torch.Tensor, window: int, grid_dim: int, k: int,
                       cos_thr: float, self_pairs: bool
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain version of K2: gather each tile's window, score every pair by
-    direct differencing, then a stable sort on ``(d2, original id)``."""
+    direct differencing, then a stable sort on ``(d2, original id)``.
+
+    Takes the kernel's layouts, with or without a leading channel axis
+    (``rows (C, n_pad, 8)``, ``ws (C, T)``; ``geo`` / ``cols`` per channel
+    or shared); channels are computed one after another."""
+    if rows.ndim == 3:
+        outs = [banded_topk_plain(ws[c], geo[c] if geo.ndim == 2 else geo,
+                                  rows[c], cols[c] if cols.ndim == 3 else cols,
+                                  window, grid_dim, k, cos_thr, self_pairs)
+                for c in range(rows.shape[0])]
+        return (torch.stack([o[0] for o in outs]),
+                torch.stack([o[1] for o in outs]))
     dev = rows.device
     n_pad = rows.shape[0]
     num_tiles = n_pad // TILE_N
@@ -149,9 +172,19 @@ def banded_topk_cuda(ws: torch.Tensor, geo: torch.Tensor, rows: torch.Tensor,
                      cols: torch.Tensor, window: int, grid_dim: int, k: int,
                      cos_thr: float, self_pairs: bool
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Launch ``csrc/banded_topk.cu`` on PyTorch's current stream."""
-    n_pad = rows.shape[0]
-    mb = cols.shape[1]
+    """Launch ``csrc/banded_topk.cu`` on PyTorch's current stream.
+
+    Single frame: ``rows (n_pad, 8)``, ``ws (T,)``, ``geo (4,)``,
+    ``cols (6, m_band)`` → ``(n_pad, k)`` outputs.  Channel-batched:
+    ``rows (C, n_pad, 8)``, ``ws (C, T)``, ``geo (C, 4)`` or shared
+    ``(4,)``, ``cols (C, 6, m_band)`` or shared ``(6, m_band)`` →
+    ``(C, n_pad, k)``; one launch with C blocks along its second grid
+    axis."""
+    batched = rows.ndim == 3
+    chans = rows.shape[0] if batched else 1
+    lead = rows.shape[:-2]
+    n_pad = rows.shape[-2]
+    mb = cols.shape[-1]
     for name, t, dt in (("ws", ws, torch.int32), ("geo", geo, torch.float32),
                         ("rows", rows, torch.float32),
                         ("cols", cols, torch.float32)):
@@ -162,23 +195,33 @@ def banded_topk_cuda(ws: torch.Tensor, geo: torch.Tensor, rows: torch.Tensor,
         if t.device != rows.device:
             raise ValueError(f"banded_topk: {name} on {t.device}, "
                              f"rows on {rows.device}")
-    if (n_pad % TILE_N or rows.shape != (n_pad, 8) or cols.shape[0] != 6
-            or geo.shape != (4,) or ws.shape != (n_pad // TILE_N,)):
+    geo_ok = geo.shape == (4,) or (batched and geo.shape == (chans, 4))
+    cols_ok = cols.shape[-2:] == (6, mb) and (
+        cols.ndim == 2 or (batched and cols.shape[0] == chans))
+    if (n_pad % TILE_N or rows.shape[-1] != 8 or rows.ndim not in (2, 3)
+            or not geo_ok or not cols_ok
+            or ws.shape != lead + (n_pad // TILE_N,)):
         raise ValueError("banded_topk: bad shapes")
     if window <= 0 or mb < window + LANE:
         raise ValueError(f"banded_topk: window {window} vs table {mb}")
     if not 1 <= k <= MAX_K:
         raise ValueError(f"banded_topk: k={k} outside [1, {MAX_K}]")
+    if not 1 <= chans <= 65535:
+        raise ValueError(f"banded_topk: {chans} channels")
     if rows.device.type != "cuda":
         raise ValueError(f"banded_topk: the kernel needs CUDA tensors, "
                          f"got {rows.device}")
     lib = _build.LIBRARY.get()
-    out_d = torch.empty((n_pad, k), dtype=torch.float32, device=rows.device)
-    out_i = torch.empty((n_pad, k), dtype=torch.int32, device=rows.device)
+    out_d = torch.empty(lead + (n_pad, k), dtype=torch.float32,
+                        device=rows.device)
+    out_i = torch.empty(lead + (n_pad, k), dtype=torch.int32,
+                        device=rows.device)
     status = lib.piml_banded_topk(
-        ws.data_ptr(), geo.data_ptr(), rows.data_ptr(), n_pad,
-        cols.data_ptr(), mb, window, grid_dim, cos_thr, int(self_pairs), k,
-        out_d.data_ptr(), out_i.data_ptr(), _build.stream_handle(rows.device))
+        ws.data_ptr(), geo.data_ptr(), 4 if geo.ndim == 2 else 0,
+        rows.data_ptr(), n_pad, chans, cols.data_ptr(), mb,
+        6 * mb if cols.ndim == 3 else 0, window, grid_dim, cos_thr,
+        int(self_pairs), k, out_d.data_ptr(), out_i.data_ptr(),
+        _build.stream_handle(rows.device))
     _build.check(status, "piml_banded_topk")
     KERNEL.launches += 1
     return out_d, out_i
@@ -186,54 +229,32 @@ def banded_topk_cuda(ws: torch.Tensor, geo: torch.Tensor, rows: torch.Tensor,
 
 def banded_topk(ws, geo, rows, cols, window, grid_dim, k, cos_thr,
                 self_pairs):
-    """K2 on packed inputs: the plain version for a CPU tensor, the kernel
-    for a CUDA tensor (which raises rather than fall back)."""
+    """K2 on packed inputs, with or without a leading channel axis: the
+    plain version for a CPU tensor, the kernel for a CUDA tensor (which
+    raises rather than fall back)."""
     fn = banded_topk_plain if rows.device.type == "cpu" else banded_topk_cuda
     return fn(ws, geo, rows, cols, window, grid_dim, k, cos_thr, self_pairs)
 
 
-def topk_neighbors_banded(
-    position: torch.Tensor,
-    heading: torch.Tensor,
-    k: int,
-    angle_threshold: float,
-    objects: Optional[torch.Tensor] = None,
-    same_objects: bool = True,
-    grid_dim: Optional[int] = None,
-    window: Optional[int] = None,
-    dist_threshold: Optional[float] = None,
-    index: Optional[ObjectIndex] = None,
-    agent_order: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
-) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Banded FOV top-k: ``(dist (N, k'), idx (N, k'), exact ())``.
+class _Sorted(NamedTuple):
+    """One frame's agents in the object grid's cell order, tiled."""
 
-    Same contract as ``topk_neighbors_pallas`` plus the device-side
-    ``exact`` flag.  ``index``: a prebuilt :func:`build_object_index` for a
-    static object table (``objects`` then only gives its shape).
-    ``agent_order``: a precomputed ``(order, inverse)`` agent sort shared
-    between the passes of one frame.
-    """
-    if objects is None:
-        objects = position
-        same_objects = True
+    ws: torch.Tensor        # (T,) window starts in LANE units
+    rows: torch.Tensor      # (n_pad, 8) packed, cell-sorted agent rows
+    inv: torch.Tensor       # (N,) un-sort permutation
+    pos: torch.Tensor       # (N, 2) positions, absent → 0
+    pos_valid: torch.Tensor
+    acell: torch.Tensor     # (N, 2) agent cells, absent pinned to G − 1
+    tile_ok: torch.Tensor   # (T,) window held the tile's 5×5 boxes
+
+
+def _sort_into_tiles(position, heading, index: ObjectIndex, g: int,
+                     window: int, same_objects: bool,
+                     agent_order) -> _Sorted:
     n = position.shape[0]
-    m = objects.shape[0]
-    k_eff = min(k, m)
-    g, window = banded_params(n, m, k, grid_dim, window,
-                              fine=dist_threshold is not None)
-
     rows_unsorted = pack_rows(position, heading)
     pos = rows_unsorted[:, 0:2]
     pos_valid = rows_unsorted[:, 4] > 0.5
-
-    if index is None:
-        index = build_object_index(objects, g, window)
-    elif (index.cols.shape[1] != m_band(m, window)
-          or index.offsets.shape[0] != g * g + 2):
-        raise ValueError(
-            f"prebuilt ObjectIndex does not match banded params "
-            f"(grid_dim={g}, window={window}); build it with "
-            f"build_object_index(objects, *banded_params(...))")
     offsets, lo, cs = index.offsets, index.lo, index.cs
 
     # agents sorted by their cell in the OBJECT grid; invalid agents pinned
@@ -267,17 +288,18 @@ def topk_neighbors_banded(
     win_start_lanes = offsets[cx0 * g] // LANE
     win_end = offsets[(cx1 + 1) * g]
     tile_ok = (win_end - win_start_lanes * LANE) <= window
+    return _Sorted(win_start_lanes.int(), rows, inv, pos, pos_valid, acell,
+                   tile_ok)
 
-    geo = torch.stack([lo[0], lo[1], cs[0], cs[1]]).contiguous()
-    out_d, out_i = banded_topk(
-        win_start_lanes.int().contiguous(), geo, rows.contiguous(),
-        index.cols, window, g, k_eff, cos_threshold(angle_threshold),
-        same_objects)
-    top_d = out_d[:n][inv]
-    top_i = out_i[:n][inv]
 
-    # exactness predicate (grid_pairs' box semantics)
-    ax, ay = acell[:, 0], acell[:, 1]
+def _exact(srt: _Sorted, top_d: torch.Tensor, index: ObjectIndex, g: int,
+           k_eff: int, dist_threshold: Optional[float]) -> torch.Tensor:
+    """The exactness predicate (grid_pairs' box semantics): every valid
+    row's k-th distance lies inside the unexamined-region bound, or its box
+    covers the grid, or (with ``dist_threshold``) the bound exceeds the
+    threshold; and no tile's window overflowed."""
+    lo, cs, pos = index.lo, index.cs, srt.pos
+    ax, ay = srt.acell[:, 0], srt.acell[:, 1]
     bx_lo = lo[0] + (ax - 2).float() * cs[0]
     bx_hi = lo[0] + (ax + 3).float() * cs[0]
     by_lo = lo[1] + (ay - 2).float() * cs[1]
@@ -295,9 +317,124 @@ def topk_neighbors_banded(
     ok = covered | (kth < bound - _BOUND_TOL)
     if dist_threshold is not None:
         ok |= bound > dist_threshold + _BOUND_TOL
-    row_ok = ~pos_valid | ok
-    exact = row_ok.all() & tile_ok.all()
+    row_ok = ~srt.pos_valid | ok
+    return row_ok.all() & srt.tile_ok.all()
+
+
+@torch.no_grad()
+def _banded(position, heading, k_eff: int, angle_threshold: float,
+            same_objects: bool, g: int, window: int,
+            dist_threshold: Optional[float], indexes, agent_orders):
+    """Shared body of both selectors over ``(C, N, 2)`` frames: the
+    host-side sort per channel, ONE kernel launch for all channels, then
+    the un-sort and the exactness predicate per channel."""
+    chans = position.shape[0]
+    srts = [_sort_into_tiles(position[c], heading[c], indexes[c], g, window,
+                             same_objects, agent_orders[c])
+            for c in range(chans)]
+    shared = all(ix is indexes[0] for ix in indexes)
+
+    def geo_of(ix):
+        return torch.stack([ix.lo[0], ix.lo[1], ix.cs[0], ix.cs[1]])
+
+    if shared:
+        geo, cols = geo_of(indexes[0]).contiguous(), indexes[0].cols
+    else:
+        geo = torch.stack([geo_of(ix) for ix in indexes])
+        cols = torch.stack([ix.cols for ix in indexes])
+    out_d, out_i = banded_topk(
+        torch.stack([s_.ws for s_ in srts]), geo,
+        torch.stack([s_.rows for s_ in srts]), cols, window, g, k_eff,
+        cos_threshold(angle_threshold), same_objects)
+    n = position.shape[1]
+    top_d = torch.stack([out_d[c, :n][s_.inv] for c, s_ in enumerate(srts)])
+    top_i = torch.stack([out_i[c, :n][s_.inv] for c, s_ in enumerate(srts)])
+    exact = torch.stack([
+        _exact(s_, top_d[c], indexes[c], g, k_eff, dist_threshold)
+        for c, s_ in enumerate(srts)])
     return top_d, top_i, exact
+
+
+def _check_index(index: ObjectIndex, m: int, g: int, window: int) -> None:
+    if (index.cols.shape[-1] != m_band(m, window)
+            or index.offsets.shape[0] != g * g + 2):
+        raise ValueError(
+            f"prebuilt ObjectIndex does not match banded params "
+            f"(grid_dim={g}, window={window}); build it with "
+            f"build_object_index(objects, *banded_params(...))")
+
+
+def topk_neighbors_banded(
+    position: torch.Tensor,
+    heading: torch.Tensor,
+    k: int,
+    angle_threshold: float,
+    objects: Optional[torch.Tensor] = None,
+    same_objects: bool = True,
+    grid_dim: Optional[int] = None,
+    window: Optional[int] = None,
+    dist_threshold: Optional[float] = None,
+    index: Optional[ObjectIndex] = None,
+    agent_order: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Banded FOV top-k: ``(dist (N, k'), idx (N, k'), exact ())``.
+
+    Same contract as ``topk_neighbors_pallas`` plus the device-side
+    ``exact`` flag.  ``index``: a prebuilt :func:`build_object_index` for a
+    static object table (``objects`` then only gives its shape).
+    ``agent_order``: a precomputed ``(order, inverse)`` agent sort shared
+    between the passes of one frame.
+    """
+    if objects is None:
+        objects = position
+        same_objects = True
+    n, m = position.shape[0], objects.shape[0]
+    g, window = banded_params(n, m, k, grid_dim, window,
+                              fine=dist_threshold is not None)
+    if index is None:
+        index = build_object_index(objects, g, window)
+    _check_index(index, m, g, window)
+    d, i, ex = _banded(position[None], heading[None],
+                       min(k, m), angle_threshold, same_objects, g, window,
+                       dist_threshold, [index], [agent_order])
+    return d[0], i[0], ex[0]
+
+
+def topk_neighbors_banded_batched(
+    position: torch.Tensor,
+    heading: torch.Tensor,
+    k: int,
+    angle_threshold: float,
+    objects: Optional[torch.Tensor] = None,
+    grid_dim: Optional[int] = None,
+    window: Optional[int] = None,
+    dist_threshold: Optional[float] = None,
+    index: Optional[ObjectIndex] = None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """:func:`topk_neighbors_banded` over C frames ``(C, N, 2)`` in one
+    launch: ``(dist (C, N, k'), idx (C, N, k'), exact (C,))``.
+
+    ``objects=None``: each channel selects among its own agents (one cell
+    index per channel); else the static ``(M, 2)`` table (or its prebuilt
+    ``index``) is shared by all channels.  Equal, channel for channel, to
+    single-frame calls without ``agent_order`` (``jax.vmap`` of the JAX
+    selector)."""
+    chans, n = position.shape[0], position.shape[1]
+    same_objects = objects is None
+    m = n if same_objects else objects.shape[0]
+    g, window = banded_params(n, m, k, grid_dim, window,
+                              fine=dist_threshold is not None)
+    if same_objects:
+        indexes = [build_object_index(position[c], g, window)
+                   for c in range(chans)]
+    else:
+        if index is None:
+            index = build_object_index(objects, g, window)
+        _check_index(index, m, g, window)
+        indexes = [index] * chans
+    return _banded(position, heading, min(k, m), angle_threshold,
+                   same_objects, g, window, dist_threshold, indexes,
+                   [None] * chans)
 
 
 def topk_neighbors_banded_or_dense(
@@ -318,6 +455,26 @@ def topk_neighbors_banded_or_dense(
         position, heading, k, angle_threshold, objects=objects,
         same_objects=same_objects, dist_threshold=dist_threshold, **kw)
     if bool(exact):
+        return bd, bi
+    KERNEL.fallbacks += 1
+    return dense_fn()
+
+
+def topk_neighbors_banded_batched_or_dense(
+    position: torch.Tensor,
+    heading: torch.Tensor,
+    k: int,
+    angle_threshold: float,
+    dense_fn: Callable[[], Tuple[torch.Tensor, torch.Tensor]],
+    **kw,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Always-exact channel-batched selector: the banded result when every
+    channel is provably exact, else ``dense_fn()`` for the whole batch —
+    the JAX package's ``lax.cond(jnp.all(exact), ...)``.  One host read
+    per call; fallbacks are counted in ``KERNEL.fallbacks``."""
+    bd, bi, exact = topk_neighbors_banded_batched(
+        position, heading, k, angle_threshold, **kw)
+    if bool(exact.all()):
         return bd, bi
     KERNEL.fallbacks += 1
     return dense_fn()

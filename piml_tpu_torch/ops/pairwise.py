@@ -14,7 +14,9 @@ semantics are the reference's FOV selection (src/data/data.py:416-447):
 On the card the kernel is bound by its N·M pair arithmetic (one thread per
 query row, the object table streamed through shared memory); device memory
 traffic is O(N·M / 64).  A CPU tensor takes the plain version below; a
-CUDA tensor launches the kernel, or raises.
+CUDA tensor launches the kernel, or raises.  Selection carries no
+gradient: the wrapper detaches its inputs, as the JAX package's
+``lax.stop_gradient`` at the kernel inputs does.
 """
 
 from __future__ import annotations
@@ -73,6 +75,7 @@ def pair_d2(xa, ya, hxa, hya, xb, yb, self_pair, cos_thr: torch.Tensor):
     return torch.where(out_of_view, math.inf, d2)
 
 
+@torch.no_grad()
 def pairwise_topk_plain(rows: torch.Tensor, cols: torch.Tensor, k: int,
                         cos_thr: float, self_pairs: bool
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -159,7 +162,7 @@ def topk_neighbors_pallas(
         objects = position
         same_objects = True
     k_eff = min(k, objects.shape[0])
-    rows = pack_rows(position, heading)
-    cols = pack_cols(objects)
+    rows = pack_rows(position.detach(), heading.detach())
+    cols = pack_cols(objects.detach())
     return pairwise_topk(rows, cols, k_eff, cos_threshold(angle_threshold),
                          same_objects)

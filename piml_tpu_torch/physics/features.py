@@ -13,9 +13,17 @@ device":
   hand-written kernels on the card: K2 (``ops/banded.py``) when
   ``use_grid_topk``, with K1 (``ops/pairwise.py``) as its exact fallback,
   or K1 directly;
+- ``batched=True`` with a rank-3 ``(C, N, 2)`` batch of frames (the
+  channeled BPTT finetune) past the same gate: the channel-batched K2, one
+  launch per pass for all channels and ONE exactness decision for the
+  whole batch, whose fallback is :func:`nearby_in_sight` over ``(C, N, M)``
+  (the JAX package's dense kernel takes single frames only);
 - otherwise — and on the CPU — :func:`nearby_in_sight`'s matmul-expansion
   distances.  With ``use_pallas_topk=False`` a large frame takes the banded
   path even on the CPU (its plain version), as JAX does in interpret mode.
+
+The selected distances feed threshold comparisons only, so the selection
+runs without autograd; gradients flow through the gathered states.
 """
 
 from __future__ import annotations
@@ -29,6 +37,7 @@ from piml_tpu_torch.ops import banded, pairwise
 
 INF = math.inf
 _GATE = 2 ** 21
+_PAIR_CHUNK = 2 ** 25   # pair elements per chunk of the contact counts
 
 
 class NeighborConfig(NamedTuple):
@@ -186,8 +195,15 @@ def prepare_obstacle_index(n_agents: int, obstacles: torch.Tensor,
     if not engaged:
         return None
     k_obs = min(cfg.topk_obs, m)
-    g_o, w_o = banded.banded_params(n_agents, m, k_obs, fine=True)
+    g_o, w_o = _obstacle_params(n_agents, m, k_obs)
     return banded.build_object_index(obstacles, g_o, w_o)
+
+
+def _obstacle_params(n_agents: int, m: int, k_obs: int):
+    """The obstacle pass's ``(grid_dim, window)``: sized, as in the JAX
+    package, from the lane-padded table, so both packages bin the same
+    grid and prove exactness over the same windows."""
+    return banded.banded_params(n_agents, _lane_padded(m), k_obs, fine=True)
 
 
 def relative_features(
@@ -199,6 +215,7 @@ def relative_features(
     cfg: NeighborConfig,
     heading: Optional[torch.Tensor] = None,
     obstacle_index=None,
+    batched: bool = False,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Neighbour / obstacle / destination features (src/data/data.py:466-512).
 
@@ -206,7 +223,9 @@ def relative_features(
       position/velocity/acceleration/destination: ``(..., N, 2)``, NaN =
         absent; obstacles: ``(M, 2)``; heading: optional precomputed
         heading (skips the fill); obstacle_index: optional
-        :func:`prepare_obstacle_index` result.
+        :func:`prepare_obstacle_index` result; batched: the leading axis
+        of a rank-3 input is a batch of frames (channels), not time — opt
+        in to the channel-batched banded route.
 
     Returns ``(ped (..., N, k1, 6), obs (..., N, k2, 6), dest (..., N, 2))``.
     """
@@ -225,13 +244,18 @@ def relative_features(
     use_kernel = cfg.use_pallas_topk and big_single_frame and on_card
     use_banded = (cfg.use_grid_topk and big_single_frame
                   and (on_card or not cfg.use_pallas_topk))
+    use_banded_batched = (batched and cfg.use_grid_topk
+                          and position.ndim == 3
+                          and n_real * _lane_padded(n_real) >= _GATE
+                          and (on_card or not cfg.use_pallas_topk))
 
     def _ped_dense():
         if use_kernel:
             return pairwise.topk_neighbors_pallas(
                 position, heading, k_ped, cfg.sight_angle_ped)
-        return nearby_in_sight(position, position, heading, k_ped,
-                               cfg.sight_angle_ped, same_objects=True)
+        with torch.no_grad():
+            return nearby_in_sight(position, position, heading, k_ped,
+                                   cfg.sight_angle_ped, same_objects=True)
 
     agent_order = None
     if use_banded:
@@ -246,6 +270,11 @@ def relative_features(
             dist_threshold=cfg.dist_threshold_ped, grid_dim=g_p, window=w_p,
             index=ped_index, agent_order=agent_order,
         )
+    elif use_banded_batched:
+        g_p, w_p = banded.banded_params(n_real, n_real, k_ped, fine=True)
+        ped_dist, ped_idx = banded.topk_neighbors_banded_batched_or_dense(
+            position, heading, k_ped, cfg.sight_angle_ped, _ped_dense,
+            dist_threshold=cfg.dist_threshold_ped, grid_dim=g_p, window=w_p)
     else:
         ped_dist, ped_idx = _ped_dense()
     gathered = _gather_neighbor_rows(state, ped_idx)
@@ -265,12 +294,12 @@ def relative_features(
             return pairwise.topk_neighbors_pallas(
                 position, heading, k_obs, cfg.sight_angle_obs,
                 objects=obstacles, same_objects=False)
-        return nearby_in_sight(position, obs, heading, k_obs,
-                               cfg.sight_angle_obs)
+        with torch.no_grad():
+            return nearby_in_sight(position, obs, heading, k_obs,
+                                   cfg.sight_angle_obs)
 
     if use_banded and big_obs:
-        g_o, w_o = banded.banded_params(position.shape[0], m_real, k_obs,
-                                        fine=True)
+        g_o, w_o = _obstacle_params(n_real, m_real, k_obs)
         o_index = (obstacle_index if obstacle_index is not None
                    else banded.build_object_index(obstacles, g_o, w_o))
         obs_dist, obs_idx = banded.topk_neighbors_banded_or_dense(
@@ -279,6 +308,13 @@ def relative_features(
             dist_threshold=cfg.dist_threshold_obs, grid_dim=g_o, window=w_o,
             index=o_index, agent_order=agent_order,
         )
+    elif use_banded_batched and n_real * _lane_padded(m_real) >= _GATE:
+        g_o, w_o = _obstacle_params(n_real, m_real, k_obs)
+        # the obstacle table is shared by the channels: one index
+        obs_dist, obs_idx = banded.topk_neighbors_banded_batched_or_dense(
+            position, heading, k_obs, cfg.sight_angle_obs, _obs_dense,
+            objects=obstacles, dist_threshold=cfg.dist_threshold_obs,
+            grid_dim=g_o, window=w_o, index=obstacle_index)
     else:
         obs_dist, obs_idx = _obs_dense()
     obs_state = torch.cat([obs, torch.zeros_like(obs), torch.zeros_like(obs)],
@@ -344,11 +380,31 @@ def collision_detection(position: torch.Tensor, threshold: float,
     return coll * friends
 
 
+@torch.no_grad()
 def collision_detection_single_frame(position: torch.Tensor,
                                      threshold: float) -> torch.Tensor:
     """Per-frame contact counts without the friends filter:
-    ``(..., N, 2) → (..., N)``."""
-    return _contacts(position, threshold).sum(dim=-1)
+    ``(..., N, 2) → (..., N)``.
+
+    The counts come from comparisons and carry no gradient.  They are
+    taken ``chunk`` query rows at a time, so at most ``_PAIR_CHUNK`` pairs
+    exist at once: the BPTT loss counts label contacts over whole
+    ``(C, T, N)`` windows, whose pair tensor at dense N would not fit the
+    card."""
+    n = position.shape[-2]
+    lead = math.prod(position.shape[:-2])
+    chunk = max(1, _PAIR_CHUNK // max(lead * n, 1))
+    cols = position[..., None, :, :]
+    counts = []
+    for s in range(0, max(n, 1), chunk):
+        rows = position[..., s:s + chunk, None, :]
+        dist = _norm(cols - rows)                          # ..., r, N
+        eye = (torch.arange(s, s + dist.shape[-2], device=position.device
+                            )[:, None]
+               == torch.arange(n, device=position.device)[None, :])
+        hit = (dist < threshold).to(position.dtype) - eye.to(position.dtype)
+        counts.append(torch.where(torch.isnan(dist), 0.0, hit).sum(dim=-1))
+    return torch.cat(counts, dim=-1)
 
 
 # ----------------------------------------------------------------------------

@@ -32,6 +32,7 @@ from piml_tpu.engine.rollout import make_step as jax_make_step
 from piml_tpu.engine.rollout import select_waypoint as jax_select_waypoint
 from piml_tpu.models import ModelSpec as JaxSpec, build_model as jax_build
 from piml_tpu.physics import NeighborConfig as JaxNeighborConfig
+from piml_tpu.physics import heading_direction as jax_heading_direction
 from piml_tpu.physics import relative_features as jax_features
 from piml_tpu.scene import Scene as JaxScene
 from piml_tpu_torch.config import PIMLConfig
@@ -40,6 +41,7 @@ from piml_tpu_torch.engine import (EngineConfig, SpawnFrame, engine_config,
                                    eval_rollout, evaluate_rollouts,
                                    init_state, make_step, select_waypoint)
 from piml_tpu_torch.models import ModelSpec, build_model, load_fixture
+from piml_tpu_torch.physics import NeighborConfig
 from piml_tpu_torch.scene import Scene, codec
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -128,6 +130,20 @@ def test_evaluate_rollouts_matches_jax(gc_slice):
                                                   rel=1e-4), key
     assert got.ot is None and got.mmd is None   # not ported yet
     assert got.collision > 0 and got.mse > 0
+
+
+def test_validation_loss_matches_jax(gc_slice):
+    """The finetune's validation metric: ``test_flag=False`` adds the
+    weighted collision counts to the rollout MSE and computes no MAE."""
+    g = gc_slice
+    ref = jax_evaluate(g["params"], g["apply_fn"], g["jcfg"], [g["jdata"]],
+                       test_flag=False)
+    got = evaluate_rollouts(g["model"], g["tcfg"], [g["tdata"]],
+                            test_flag=False)
+    for key in ("loss", "mse", "collision", "hard_collision"):
+        assert getattr(got, key) == pytest.approx(getattr(ref, key),
+                                                  rel=1e-4), key
+    assert got.loss > got.mse and got.mae == 0.0
 
 
 def test_select_waypoint_matches_jax(rng):
@@ -231,3 +247,111 @@ def test_make_step_matches_jax(rng, lagged, retire, track):
     assert float(tout.msg_l1) == pytest.approx(float(jout.msg_l1), rel=1e-5)
     if track:
         assert float(tout.collisions.sum()) > 0
+
+
+def test_step_counts_collisions_on_a_detached_position(rng, monkeypatch):
+    """The per-step contact counts see ``state.p`` without its autograd
+    history (the JAX package's ``stop_gradient(state.p)``), so a training
+    step records no (…, N, N, 2) pair tensor in its graph."""
+    import importlib
+
+    trollout = importlib.import_module("piml_tpu_torch.engine.rollout")
+
+    seen = []
+    real = trollout.collision_detection_single_frame
+
+    def spy(position, threshold):
+        seen.append(position.requires_grad)
+        return real(position, threshold)
+
+    monkeypatch.setattr(trollout, "collision_detection_single_frame", spy)
+    n = 30
+    p = torch.from_numpy((rng.rand(n, 2) * 4).astype(np.float32))
+    p.requires_grad_(True)
+    z = torch.zeros(n, 2)
+    state = init_state(p, z, z, z, torch.zeros(n, dtype=torch.int32),
+                       torch.zeros(n, 6, 6), torch.zeros(n, 10, 6),
+                       torch.zeros(n, 7))
+    model = build_model(ModelSpec.from_config(PIMLConfig(**CFG)))
+    step = make_step(model, EngineConfig(track_collisions=True),
+                     torch.zeros(1, n, 2), torch.ones(n, dtype=torch.int32),
+                     torch.zeros(4, 2), torch.ones(n, 1))
+    _, out = step(state, SpawnFrame(torch.zeros(n), z, z, z, z,
+                                    torch.zeros(n, dtype=torch.int32), z))
+    assert seen == [False, False]
+    assert float(out.collisions.sum()) > 0
+
+
+def test_batched_rollout_matches_jax(rng):
+    """Three frames of the channel-batched rollout (C = 2, N = 1,536 past
+    the pair gate, use_pallas_topk=False so both packages take the
+    channel-batched banded route; JAX in interpret mode) from the same
+    state, with teleport-ins and collision bookkeeping: positions to
+    1e-4 m, counts exactly."""
+    from piml_tpu.engine.rollout import batched_rollout as jax_batched
+    from piml_tpu_torch.engine import batched_rollout
+
+    C, n, m, T = 2, 1536, 64, 3
+    p = (rng.rand(C, n, 2) * 60).astype(np.float32)
+    p[:, :20] = np.nan                               # absent until spawned
+    v = rng.randn(C, n, 2).astype(np.float32)
+    a = (0.3 * rng.randn(C, n, 2)).astype(np.float32)
+    wp = (rng.rand(2, n, 2) * 60).astype(np.float32)
+    dest = np.broadcast_to(wp[0], (C, n, 2)).copy()
+    obs = (rng.rand(m, 2) * 60).astype(np.float32)
+    ds = np.full((n, 1), 1.3, np.float32)
+    ncfg_kw = dict(use_pallas_topk=False)
+    head = jax_heading_direction(jnp.asarray(np.nan_to_num(v)),
+                                 time_axis=False)
+    pf, of, df = (np.array(x) for x in jax_features(
+        jnp.asarray(p), jnp.asarray(v), jnp.asarray(a), jnp.asarray(dest),
+        jnp.asarray(obs), JaxNeighborConfig(**ncfg_kw), heading=head,
+        batched=True))
+    sf = np.concatenate([df, v, a, np.broadcast_to(ds, (C, n, 1))], axis=-1)
+    new = np.zeros((C, T, n), np.float32)
+    new[:, 1, :10] = 1.0
+    spawn = [new, (rng.rand(C, T, n, 2) * 60).astype(np.float32),
+             rng.randn(C, T, n, 2).astype(np.float32),
+             np.zeros((C, T, n, 2), np.float32),
+             np.broadcast_to(wp[0], (C, T, n, 2)).copy(),
+             np.zeros((C, T, n), np.int32),
+             rng.randn(C, T, n, 2).astype(np.float32)]
+    dest_idx = np.zeros((C, n), np.int32)
+    dest_num = np.full(n, 2, np.int32)
+    kw = dict(retire_on_arrival=False, track_collisions=True,
+              track_collision_labels=True, remat=False)
+
+    with open(MSGPACK, "rb") as f:
+        params = msgpack_restore(f.read())
+    jmodel = jax_build(JaxSpec.from_config(JaxConfig(**CFG)))
+    _, jout = jax_batched(
+        params, lambda pr, a_, b_, c_: jmodel.apply(pr, a_, b_, c_),
+        JaxEngineConfig(neighbor=JaxNeighborConfig(**ncfg_kw), **kw),
+        jax_init_state(*(jnp.asarray(x) for x in
+                         (p, v, a, dest, dest_idx, pf, of, sf))),
+        JaxSpawnFrame(*(jnp.asarray(x) for x in spawn)), jnp.asarray(wp),
+        jnp.asarray(dest_num), jnp.asarray(obs), jnp.asarray(ds))
+
+    def t(x):
+        return torch.from_numpy(np.array(x))
+
+    model = build_model(ModelSpec.from_config(PIMLConfig(**CFG)))
+    model.load_state_dict(load_fixture())
+    with torch.no_grad():
+        _, tout = batched_rollout(
+            model, EngineConfig(neighbor=NeighborConfig(**ncfg_kw), **kw),
+            init_state(*(t(x) for x in (p, v, a, dest, dest_idx, pf, of,
+                                        sf))),
+            SpawnFrame(*(t(x) for x in spawn)), t(wp), t(dest_num), t(obs),
+            t(ds))
+    assert tout.p.shape == (C, T, n, 2)
+    p_ref, p_got = np.asarray(jout.p), tout.p.numpy()
+    np.testing.assert_array_equal(np.isnan(p_got), np.isnan(p_ref))
+    np.testing.assert_allclose(p_got, p_ref, rtol=0, atol=1e-4)
+    for key in ("mask", "collisions", "hard_collisions", "true_coll"):
+        np.testing.assert_array_equal(getattr(tout, key).numpy(),
+                                      np.asarray(getattr(jout, key)),
+                                      err_msg=key)
+    np.testing.assert_allclose(tout.msg_l1.numpy(), np.asarray(jout.msg_l1),
+                               rtol=1e-5)
+    assert float(tout.collisions.sum()) > 0

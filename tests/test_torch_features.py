@@ -147,3 +147,104 @@ def test_gather_filtered_matches_jax(rng):
                              jnp.asarray(dist), 4.0)
     got = tf.gather_filtered(_t(feats), _t(idx), _t(dist), 4.0)
     np.testing.assert_array_equal(got.numpy(), np.asarray(ref))
+
+
+def test_contact_counts_in_row_chunks_match_jax(rng, monkeypatch):
+    """The per-frame contact counts of a (C, T, N) batch, taken a few query
+    rows at a time, equal the JAX package's all-pairs counts."""
+    pos = (rng.rand(2, 3, 40, 2) * 4).astype(np.float32)
+    pos[rng.rand(2, 3, 40) < 0.2] = np.nan
+    monkeypatch.setattr(tf, "_PAIR_CHUNK", 2 * 3 * 40 * 7)   # 7 rows
+    for thr in (0.5, 0.25):
+        np.testing.assert_array_equal(
+            tf.collision_detection_single_frame(_t(pos), thr).numpy(),
+            np.asarray(jf.collision_detection_single_frame(jnp.asarray(pos),
+                                                           thr)))
+
+
+def test_obstacle_pass_sized_from_lane_padded_table_like_jax():
+    """M = 300 obstacles (lane-padded to 384): the banded obstacle pass
+    bins the grid and sizes the windows from the padded count, as the JAX
+    package does, so both packages prove exactness over the same boxes."""
+    from piml_tpu.ops import banded as jb
+
+    n = 6000                 # n · 384 ≥ 2^21: the obstacle pass engages
+    obs = (np.random.RandomState(1).rand(300, 2) * 100).astype(np.float32)
+    cfg_kw = dict(use_pallas_topk=False)
+    ref = jf.prepare_obstacle_index(n, jnp.asarray(obs),
+                                    jf.NeighborConfig(**cfg_kw))
+    got = tf.prepare_obstacle_index(n, _t(obs), tf.NeighborConfig(**cfg_kw))
+    g_ref, w_ref = jb.banded_params(n, 384, 10, fine=True)
+    assert tf._obstacle_params(n, 300, 10) == (g_ref, w_ref)
+    assert got.offsets.shape == ref.offsets.shape == (g_ref * g_ref + 2,)
+    assert got.cols.shape[-1] == ref.cols.shape[-1]
+    # per-cell starts agree; the last entry also counts the JAX table's 84
+    # NaN padding rows, which sit in the invalid bucket
+    np.testing.assert_array_equal(got.offsets.numpy()[:-1],
+                                  np.asarray(ref.offsets)[:-1])
+
+
+def test_relative_features_batched_route_matches_jax(rng, monkeypatch):
+    """C = 2 frames, N = 1,536, M = 2,000 with ``batched=True`` and
+    use_pallas_topk=False: both packages take the channel-batched banded
+    route for the agent and the obstacle pass (JAX: the vmapped
+    interpret-mode kernel under one lax.cond)."""
+    calls = []
+    real = tf.banded.topk_neighbors_banded_batched
+
+    def spy(*args, **kw):
+        calls.append(kw.get("objects") is None)
+        return real(*args, **kw)
+
+    monkeypatch.setattr(tf.banded, "topk_neighbors_banded_batched", spy)
+    frames = [_frame(rng, 1536, 2000, 60.0, absent=0.05) for _ in range(2)]
+    pos, vel, acc, dest = (np.stack([f[i] for f in frames])
+                           for i in range(4))
+    obs = frames[0][4]
+    head = np.asarray(jf.heading_direction(jnp.asarray(vel),
+                                           time_axis=False))
+    cfg_kw = dict(use_pallas_topk=False)
+    ref = jf.relative_features(
+        *(jnp.asarray(a) for a in (pos, vel, acc, dest, obs)),
+        jf.NeighborConfig(**cfg_kw), heading=jnp.asarray(head), batched=True)
+    before = tf.banded.KERNEL.fallbacks
+    got = tf.relative_features(*(_t(a) for a in (pos, vel, acc, dest, obs)),
+                               tf.NeighborConfig(**cfg_kw), heading=_t(head),
+                               batched=True)
+    assert calls == [True, False]          # agent pass, obstacle pass
+    assert tf.banded.KERNEL.fallbacks == before
+    assert got[0].shape == (2, 1536, 6, 6) and got[1].shape == (2, 1536, 10, 6)
+    assert_features_match(ref[0], got[0].numpy(), 4.0, name="batched/ped")
+    assert_features_match(ref[1], got[1].numpy(), 4.0, name="batched/obs")
+    np.testing.assert_allclose(got[2].numpy(), np.asarray(ref[2]), atol=1e-5)
+
+
+@pytest.mark.parametrize("route", ["dense", "banded"])
+def test_relative_features_gradient_matches_jax(rng, route):
+    """Gradients of a weighted sum of the features with respect to the
+    positions and velocities, against ``jax.grad``: selection carries none
+    (stop_gradient / comparisons on both sides), the gathered states do."""
+    import jax
+
+    n, m, extent = (64, 150, 20.0) if route == "dense" else (1500, 1400, 70.0)
+    pos, vel, acc, dest, obs = _frame(rng, n, m, extent, absent=0.05)
+    head = np.asarray(jf.heading_direction(jnp.asarray(vel),
+                                           time_axis=False))
+    w = [rng.randn(n, 6, 6).astype(np.float32),
+         rng.randn(n, 10, 6).astype(np.float32),
+         rng.randn(n, 2).astype(np.float32)]
+    cfg_kw = {} if route == "dense" else dict(use_pallas_topk=False)
+
+    def jloss(p, v):
+        out = jf.relative_features(p, v, jnp.asarray(acc), jnp.asarray(dest),
+                                   jnp.asarray(obs), jf.NeighborConfig(**cfg_kw),
+                                   heading=jnp.asarray(head))
+        return sum(jnp.sum(o * jnp.asarray(wi)) for o, wi in zip(out, w))
+
+    ref = jax.grad(jloss, argnums=(0, 1))(jnp.asarray(pos), jnp.asarray(vel))
+    p, v = _t(pos).requires_grad_(True), _t(vel).requires_grad_(True)
+    out = tf.relative_features(p, v, _t(acc), _t(dest), _t(obs),
+                               tf.NeighborConfig(**cfg_kw), heading=_t(head))
+    sum((o * _t(wi)).sum() for o, wi in zip(out, w)).backward()
+    for got, r in ((p.grad, ref[0]), (v.grad, ref[1])):
+        np.testing.assert_allclose(got.numpy(), np.asarray(r), atol=1e-4)

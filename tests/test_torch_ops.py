@@ -262,3 +262,154 @@ def test_k2_wrapper_refuses_bad_inputs_before_any_launch():
                                 True)
     with pytest.raises(ValueError, match="CUDA"):   # well-formed, on the CPU
         banded.banded_topk_cuda(ws, geo, rows, cols, 128, 4, 6, 0.1, True)
+
+
+# ---------------------------------------------------------------------------
+# K2 with a channel axis (the BPTT finetune's batched feature pass)
+# ---------------------------------------------------------------------------
+
+def _two_channels(rng, n=1536, extent=60.0):
+    pos, h = _spread(rng, n, extent)
+    pos2 = pos + (0.05 * rng.randn(n, 2)).astype(np.float32)
+    pos2[rng.rand(n) < 0.1] = np.nan
+    h2 = _heading(rng.randn(n, 2).astype(np.float32))
+    return np.stack([pos, pos2]), np.stack([h, h2])
+
+
+@pytest.mark.parametrize("objects", [False, True])
+def test_k2_batched_plain_matches_vmapped_jax_kernel(rng, objects):
+    """C = 2 frames at N = 1,536 (past the 2^21 pair gate) through the
+    port's batched selector and ``jax.vmap`` of the JAX selector (the
+    interpret-mode Pallas kernel batched over channels): agent pass with a
+    per-channel cell index, obstacle pass with one shared table."""
+    import jax
+
+    pos, h = _two_channels(rng)
+    kw = dict(dist_threshold=4.0)
+    obs = None
+    if objects:
+        obs = (rng.rand(2000, 2) * 60.0).astype(np.float32)
+        kw["grid_dim"], kw["window"] = banded.banded_params(1536, 2048, 10,
+                                                            fine=True)
+    k = 10 if objects else 6
+
+    def one(p, hd):
+        return jax_banded(p, hd, k, 90.0, interpret=True,
+                          objects=None if obs is None else jnp.asarray(obs),
+                          same_objects=obs is None, **kw)
+
+    d_j, i_j, ex_j = jax.vmap(one)(jnp.asarray(pos), jnp.asarray(h))
+    d_t, i_t, ex_t = banded.topk_neighbors_banded_batched(
+        _t(pos), _t(h), k, 90.0, objects=None if obs is None else _t(obs),
+        **kw)
+    assert d_t.shape == (2, 1536, k) and ex_t.shape == (2,)
+    np.testing.assert_array_equal(ex_t.numpy(), np.asarray(ex_j))
+    for c in range(2):
+        assert_selection_close(d_j[c], i_j[c], d_t[c], i_t[c])
+
+
+def test_k2_batched_equals_single_frame_calls(rng):
+    """Channel for channel, the batched selector is the single-frame one;
+    with one channel it makes the single-frame launch."""
+    pos, h = _two_channels(rng, n=700, extent=40.0)
+    obs = (rng.rand(900, 2) * 40.0).astype(np.float32)
+    for objects in (None, _t(obs)):
+        got = banded.topk_neighbors_banded_batched(
+            _t(pos), _t(h), 6, 90.0, objects=objects, dist_threshold=4.0)
+        for c in range(2):
+            ref = banded.topk_neighbors_banded(
+                _t(pos[c]), _t(h[c]), 6, 90.0, objects=objects,
+                same_objects=objects is None, dist_threshold=4.0)
+            for a, b in zip(got, ref):
+                assert torch.equal(a[c], b)
+
+
+def test_k2_batched_or_dense_takes_one_decision_for_the_batch(
+        rng, monkeypatch):
+    """One inexact channel sends the whole batch to the dense path and
+    counts one fallback; all exact keeps the banded result."""
+    pos, h = _two_channels(rng, n=300, extent=20.0)
+    real = banded.topk_neighbors_banded_batched
+    flags = {}
+
+    def with_flags(*args, **kw):
+        d, i, _ = real(*args, **kw)
+        return d, i, torch.tensor(flags["exact"])
+
+    monkeypatch.setattr(banded, "topk_neighbors_banded_batched", with_flags)
+    sentinel = (torch.zeros(2, 300, 6), torch.zeros(2, 300, 6,
+                                                     dtype=torch.int32))
+    for exact, falls_back in (([True, False], True), ([True, True], False)):
+        flags["exact"] = exact
+        before = banded.KERNEL.fallbacks
+        d, _ = banded.topk_neighbors_banded_batched_or_dense(
+            _t(pos), _t(h), 6, 90.0, lambda: sentinel)
+        assert (d is sentinel[0]) == falls_back
+        assert banded.KERNEL.fallbacks == before + int(falls_back)
+
+
+def test_k2_batched_wrapper_refuses_bad_inputs_before_any_launch():
+    rows = torch.zeros((2, 128, 8))
+    cols = torch.zeros((2, 6, 512))
+    geo = torch.ones(2, 4)
+    ws = torch.zeros((2, 1), dtype=torch.int32)
+    with pytest.raises(ValueError):   # per-channel table for 3 channels
+        banded.banded_topk_cuda(ws, geo, rows, torch.zeros((3, 6, 512)), 128,
+                                4, 6, 0.1, True)
+    with pytest.raises(ValueError):   # window starts for one channel
+        banded.banded_topk_cuda(ws[:1], geo, rows, cols, 128, 4, 6, 0.1,
+                                True)
+    with pytest.raises(ValueError):   # per-channel geometry, single frame
+        banded.banded_topk_cuda(ws[0], geo, rows[0], cols[0], 128, 4, 6, 0.1,
+                                True)
+    with pytest.raises(ValueError, match="CUDA"):   # well-formed, shared
+        banded.banded_topk_cuda(ws, geo[0], rows, cols[0], 128, 4, 6, 0.1,
+                                True)
+    with pytest.raises(ValueError, match="CUDA"):   # well-formed, per channel
+        banded.banded_topk_cuda(ws, geo, rows, cols, 128, 4, 6, 0.1, True)
+
+
+# ---------------------------------------------------------------------------
+# selection carries no gradient (lax.stop_gradient at the kernel inputs)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("which", ["k1", "k2"])
+def test_selection_carries_no_gradient_like_jax(rng, which):
+    """The JAX selectors stop the gradient at the kernel inputs, so the
+    gradient of their distances is zero; the port's wrappers detach their
+    inputs and run the plain versions without autograd."""
+    import jax
+
+    pos, h = _spread(rng, 600, 30.0)
+    if which == "k1":
+        def jfn(p):
+            return jnp.sum(jnp.where(jnp.isfinite(d := jax_dense(
+                p, jnp.asarray(h), 6, 90.0, interpret=True)[0]), d, 0.0))
+        tfn = pairwise.topk_neighbors_pallas
+    else:
+        def jfn(p):
+            d = jax_banded(p, jnp.asarray(h), 6, 90.0, interpret=True)[0]
+            return jnp.sum(jnp.where(jnp.isfinite(d), d, 0.0))
+        tfn = banded.topk_neighbors_banded
+    ref = np.asarray(jax.grad(jfn)(jnp.asarray(pos)))
+    assert not ref.any()
+    p = _t(pos).requires_grad_(True)
+    out = tfn(p, _t(h), 6, 90.0)
+    assert not any(t.requires_grad for t in out)
+    seen = []
+    real = (pairwise.pairwise_topk_plain if which == "k1"
+            else banded.banded_topk_plain)
+
+    def spy(*args):
+        seen.append(any(torch.is_tensor(a) and a.requires_grad
+                        for a in args))
+        return real(*args)
+
+    mod = pairwise if which == "k1" else banded
+    name = "pairwise_topk_plain" if which == "k1" else "banded_topk_plain"
+    setattr(mod, name, spy)
+    try:
+        tfn(p, _t(h), 6, 90.0)
+    finally:
+        setattr(mod, name, real)
+    assert seen and not any(seen)

@@ -2,6 +2,7 @@
 """Where a dense-stress frame of the PyTorch port spends its time (GPU).
 
     python3 tools/profile_torch_stress.py [--frames 10]
+    python3 tools/profile_torch_stress.py --train [--steps 2]
 
 Builds the dense-stress scene of ``chip_smoke.py`` (12,685 agents, 4,096
 obstacles, trained ``pinnsf_bm``), warms up, then traces ``--frames``
@@ -10,6 +11,11 @@ K1 fallback; K1 alone).  Prints per route: wall ms/frame of the frame loop, devi
 busy ms/frame (kernel time on the single stream over the traced span,
 which also holds the initial feature pass), the device's idle share of
 that span, and the top kernels by device time.  Needs a CUDA device.
+
+``--train``: the same for finetune steps (loss, backward, Adam) at
+``chip_smoke.py``'s two training shapes — the dense-N step (phase 9) and
+the paper-shape step (phase 10) — per step instead of per frame, plus the
+untraced wall split into forward, backward and optimizer.
 """
 
 import argparse
@@ -21,19 +27,109 @@ import time
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
+def device_rows(prof):
+    """``(busy µs, [(µs, kernel name, calls)])`` of a trace, kernels only
+    (an aten op also carries its kernels' time)."""
+    from torch.autograd import DeviceType
+
+    rows, busy_us = [], 0.0
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        if e.self_device_time_total > 0:
+            busy_us += e.self_device_time_total
+            rows.append((e.self_device_time_total, e.key, e.count))
+    rows.sort(reverse=True)
+    return busy_us, rows
+
+
+def train_steps(steps: int, top: int) -> None:
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    import chip_smoke
+    from piml_tpu_torch.config import PIMLConfig
+    from piml_tpu_torch.data import make_time_indexed, to_channeled
+    from piml_tpu_torch.engine import training_rollout_loss
+    from piml_tpu_torch.models import PRETRAINED, load_fixture
+    from piml_tpu_torch.scene import Scene
+    from piml_tpu_torch.train.trainer import make_optimizer
+
+    dev = torch.device(chip_smoke.DEVICE)
+    cfg = PIMLConfig(**chip_smoke.TRAIN_CFG,
+                     ft_batch_size=chip_smoke.TRAIN_CHANNELS)
+    model = chip_smoke.finetune_model(cfg, dev)
+    data = make_time_indexed(cfg, Scene.load(
+        os.path.join(ROOT, "repro_work", "gc_sf_repro.npy"), device=dev))
+    paper = to_channeled(data, chip_smoke.TRAIN_FRAMES, "slice")
+    paper = paper.slice_channels(np.arange(chip_smoke.PAPER_WINDOWS)
+                                 + cfg.skip_frames)
+    pmodel = chip_smoke.finetune_model(cfg, dev, load_fixture(PRETRAINED))
+    shapes = {
+        "dense_n": (chip_smoke.Clamped(model), model,
+                    chip_smoke.dense_batch(dev), cfg),
+        "paper": (pmodel, pmodel, paper,
+                  cfg.replace(ft_batch_size=chip_smoke.PAPER_WINDOWS)),
+    }
+    for label, (fn, module, batch, c) in shapes.items():
+        opt = make_optimizer(c, module.parameters(), finetune=True)
+
+        def step(split=None):
+            t = [time.perf_counter()]
+            out = training_rollout_loss(fn, c, batch)
+            for part in (lambda: out.loss.backward(), opt.step):
+                if split is not None:
+                    torch.cuda.synchronize()
+                    t.append(time.perf_counter())
+                part()
+            opt.zero_grad(set_to_none=True)
+            torch.cuda.synchronize()
+            t.append(time.perf_counter())
+            if split is not None:
+                split.append(np.diff(t))
+
+        split = []
+        step(split)                                   # warm-up
+        step(split)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(steps):
+                step()
+            total = time.perf_counter() - t0
+        busy_us, rows = device_rows(prof)
+        fwd, bwd, adam = (float(x) for x in split[-1])
+        print(json.dumps({
+            "train_step": label, "steps": steps,
+            "wall_s_per_step_untraced": fwd + bwd + adam,
+            "forward_s": fwd, "backward_s": bwd, "optimizer_s": adam,
+            "wall_s_per_step_profiled": total / steps,
+            "device_busy_s_per_step": busy_us / 1e6 / steps,
+            "device_idle_share": 1.0 - busy_us / 1e6 / total,
+            "top_kernels": [dict(name=k[:80], ms_per_step=us / 1e3 / steps,
+                                 calls_per_step=n / steps)
+                            for us, k, n in rows[:top]],
+        }))
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--frames", type=int, default=10)
     ap.add_argument("--top", type=int, default=12)
+    ap.add_argument("--train", action="store_true")
+    ap.add_argument("--steps", type=int, default=2)
     args = ap.parse_args()
 
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     if not torch.cuda.is_available():
         raise SystemExit("profile_torch_stress: needs a CUDA device")
     sys.path.insert(0, ROOT)
+    if args.train:
+        train_steps(args.steps, args.top)
+        return
     import chip_smoke
     from piml_tpu_torch.physics import NeighborConfig
 
@@ -48,17 +144,7 @@ def main():
             t0 = time.perf_counter()
             _, wall = chip_smoke.stress_rollout(model, sc, ncfg, args.frames)
             total = time.perf_counter() - t0
-        rows = []
-        busy_us = 0.0
-        for e in prof.key_averages():
-            # kernels only: an aten op also carries its kernels' time
-            if e.device_type != DeviceType.CUDA:
-                continue
-            dev_us = e.self_device_time_total
-            if dev_us > 0:
-                busy_us += dev_us
-                rows.append((dev_us, e.key, e.count))
-        rows.sort(reverse=True)
+        busy_us, rows = device_rows(prof)
         per_frame = lambda us: us / 1e3 / args.frames
         print(json.dumps({
             "route": label, "frames": args.frames,
