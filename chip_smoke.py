@@ -22,8 +22,9 @@ Phases, one line each; any failure raises and exits non-zero:
    frames, through the kernels and through the plain versions — bitwise
    equal;
 7. the GC window (``repro_work/gc_sf_repro.npy``): ``make_time_indexed``
-   and ``evaluate_rollouts`` on the GPU, and a 60-frame slice on the GPU
-   against the same slice on the CPU;
+   and ``evaluate_rollouts`` (with OT and MMD) on the GPU, and a 60-frame
+   slice on the GPU against the same slice on the CPU (MAE, OT, MMD and
+   the rest to rtol 1e-4);
 8. K2 with its channel axis on the stress scene at C = 2 (the second
    channel a seeded jitter of the first), agent and obstacle pass: the
    batched launch bitwise equal to its plain version and to two
@@ -43,12 +44,31 @@ Phases, one line each; any failure raises and exits non-zero:
 11. ``Trainer.finetune``: 2 epochs on GC windows from the pretrained
     weights, validated on a held-out frame range, checkpoints in a
     temporary directory; finite losses, and the reloaded best checkpoint
-    gives the best validation loss again.
+    gives the best validation loss again;
+12. OT and MMD at dense N (``bench.py:617`` ``bench_dense_metrics``:
+    5 frames of 12,685 agents uniform over 200 m, ``q = p + N(0, 0.5²)``):
+    every frame's banded Sinkhorn exact and equal to the streaming kernel
+    (rel 1e-4); a far cloud (300 m away) fails the proof and falls back to
+    the streaming value bit for bit; streaming MMD equal to dense MMD on
+    4,096 agents, against q and against the far cloud (rel 1e-4 /
+    abs 1e-6); ms/frame of ``ot_with_time_mask``
+    and ``mmd_with_time_mask``, iterations per frame, peak memory;
+13. the CLI pipeline, ``piml_tpu_torch.exp.main.run``, on scenes cut from
+    the committed GC scenes (frames 0-300 / 300-450 / 450-600 of
+    ``gc_sf_repro.npy`` to pretrain, of ``gc_mlapm_repro.npy`` to
+    finetune) with the paper's hyper-parameters for 2 epochs: finite
+    losses, finite test OT / MMD for the pretrained and the finetuned
+    model, checkpoints on disk; a rerun with 3 epochs resumes at epoch 2
+    and its epoch-2 pretrain records equal an uninterrupted 3-epoch
+    pretrain's bit for bit.  s/epoch, rows/s, test eval seconds.
 
 The line before the last holds the kernels' record as JSON, and the last
 line is ``{"ok": true, "device": {...}}``.  Launch counts are zeroed just
 before each main path (phases 4-5, phase 9) and read just after it: they
-count only the main paths' launches.  It needs no network and starts no
+count only the main paths' launches.  Phases 12-13 run no kernel of the
+port: dense-N OT and MMD are torch ops, and the CLI pipeline's scenes
+(at most 337 agents, 4,094 obstacle points) stay below the 2^21 pair
+gate that routes the feature pass to K1 / K2.  It needs no network and starts no
 process besides ``nvidia-smi`` and the ``nvcc`` builds.
 """
 
@@ -78,6 +98,20 @@ TRAIN_OBSTACLES = 64
 PAPER_WINDOWS = 32          # paper-shape step (bench.py:352)
 FT_WINDOWS = (25, 125)      # Trainer.finetune: training windows' first
 FT_VALID_FRAMES = (600, 700)  # frames, and the held-out validation frames
+OT_FRAMES = 5               # OT / MMD at dense N (bench.py:617)
+OT_MMD_SUBSET = 4096        # agents of the streaming-vs-dense MMD check
+# the CLI pipeline: frame ranges of the committed scenes per split, and
+# the paper's hyper-parameters (tools/run_gc_experiment.py:37-59)
+CLI_SPLITS = {"train": (0, 300), "valid": (300, 450), "test": (450, 600)}
+CLI_EPOCHS = 2
+CLI_CFG = dict(model="pinnsf_bm", dataset_name="gc2344", batch_size=128,
+               ft_batch_size=32, learning_rate=2e-4, weight_decay=1e-6,
+               finetune_lr_decay=0.02, valid_steps=10, skip_frames=25,
+               collision_pred_weight=5e-2, collision_loss_weight=200.0,
+               collision_focus_weight=1.0, hard_collision_penalty=2.0,
+               val_coll_weight=30.0, time_decay=0.9, reg_weight=1e-2,
+               collision_loss_version="v2", dropout=0.5, shuffle=True,
+               patience=20, ft_patience=5, compat_swapped_patience=True)
 # the bench's finetune hyper-parameters (bench.py:382, :520)
 TRAIN_CFG = dict(model="pinnsf_bm", dataset_name="gc2344", dropout=0.0,
                  skip_frames=25, valid_steps=TRAIN_FRAMES,
@@ -302,6 +336,195 @@ def stress_rollout(model, sc, ncfg, frames):
     return outs, time.perf_counter() - t0
 
 
+def dense_metrics(dev, n_agents):
+    """Phase 12: OT and MMD at dense N (``bench.py:617``
+    ``bench_dense_metrics``): ``OT_FRAMES`` frames of ``n_agents`` agents
+    uniform over 200 m × 200 m, ``q = p + N(0, 0.5²)``, full masks."""
+    import torch
+
+    from piml_tpu_torch.metrics import (mmd_masked, mmd_masked_chunked,
+                                        mmd_with_time_mask, ot_with_time_mask,
+                                        sinkhorn_banded,
+                                        sinkhorn_banded_or_dense,
+                                        sinkhorn_masked_chunked)
+
+    g = torch.Generator().manual_seed(SEED + 2)
+    p = torch.rand((OT_FRAMES, n_agents, 2), generator=g) * 200.0
+    q = p + 0.5 * torch.randn(p.shape, generator=g)
+    far = torch.rand((n_agents, 2), generator=g) * 200.0 + 300.0
+    p, q, far = p.to(dev), q.to(dev), far.to(dev)
+    ones = torch.ones((OT_FRAMES, n_agents), device=dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+
+    iterations, costs = [], []
+    for t in range(OT_FRAMES):
+        cost, exact, its = sinkhorn_banded(p[t], q[t], ones[t], ones[t],
+                                           with_iterations=True)
+        dense = sinkhorn_masked_chunked(p[t], q[t], ones[t], ones[t])
+        c, d = float(cost), float(dense)
+        if not bool(exact):
+            raise AssertionError(f"dense OT frame {t}: banded not exact")
+        if abs(c - d) > 1e-4 * abs(d):
+            raise AssertionError(f"dense OT frame {t}: banded {c} vs "
+                                 f"streaming {d}")
+        iterations.append(int(its))
+        costs.append([c, d])
+    _, far_exact = sinkhorn_banded(p[0], far, ones[0], ones[0])
+    if bool(far_exact):
+        raise AssertionError("far-cloud OT: the banded proof held")
+    got = sinkhorn_banded_or_dense(p[0], far, ones[0], ones[0])
+    assert_equal(got, sinkhorn_masked_chunked(p[0], far, ones[0], ones[0]),
+                 "far-cloud OT fallback vs streaming")
+    # MMD of q = p + noise is float32 rounding noise around 0, so the
+    # subset is also held against the far cloud, where MMD is O(1)
+    sub = slice(0, min(OT_MMD_SUBSET, n_agents))
+    mmd_pairs = {}
+    for name, target in (("near", q[0]), ("far", far)):
+        mmd_args = (p[0, sub], target[sub], ones[0, sub], ones[0, sub])
+        m_stream, m_dense = (float(mmd_masked_chunked(*mmd_args)),
+                             float(mmd_masked(*mmd_args)))
+        if abs(m_stream - m_dense) > 1e-4 * abs(m_dense) + 1e-6:
+            raise AssertionError(f"MMD subset ({name}): streaming "
+                                 f"{m_stream} vs dense {m_dense}")
+        mmd_pairs[name] = [m_stream, m_dense]
+    ot_ms = cuda_ms(lambda: ot_with_time_mask(p, q, ones, "sum"), 1)
+    mmd_ms = cuda_ms(lambda: mmd_with_time_mask(p, q, ones, "sum"), 3)
+    rec = dict(frames=OT_FRAMES, agents=n_agents,
+               ot_ms_per_frame=ot_ms / OT_FRAMES,
+               mmd_ms_per_frame=mmd_ms / OT_FRAMES,
+               sinkhorn_iterations=iterations, banded_vs_streaming=costs,
+               far_cloud_exact=False, far_cloud_fallback_bitwise=True,
+               mmd_subset=mmd_pairs,
+               max_memory_allocated_bytes=torch.cuda.max_memory_allocated(
+                   dev))
+    say("dense_ot_mmd", **rec)
+    return rec
+
+
+def cli_pipeline(dev, tmp):
+    """Phase 13: ``piml_tpu_torch.exp.main.run`` on scenes cut from the
+    committed GC scenes (``CLI_SPLITS``) and written with ``Scene.save``:
+    pretrain, test, finetune, test, all with resumable checkpoints; then a
+    rerun with one more epoch, which resumes both loops at epoch
+    ``CLI_EPOCHS``, against an uninterrupted pretrain of that many epochs
+    plus one."""
+    import io
+    import re
+
+    import torch
+
+    from piml_tpu_torch.config import PIMLConfig
+    from piml_tpu_torch.data import PointwiseDataset
+    from piml_tpu_torch.exp.main import run
+    from piml_tpu_torch.scene import Scene, crop
+    from piml_tpu_torch.train.trainer import (MetricLogger, Trainer,
+                                              checkpoint_path)
+
+    configs = {}
+    for name, file in (("pretrain", "gc_sf_repro.npy"),
+                       ("finetune", "gc_mlapm_repro.npy")):
+        src = Scene.load(os.path.join(ROOT, "repro_work", file))
+        lines = []
+        for split, (a, b) in CLI_SPLITS.items():
+            path = os.path.join(tmp, f"{name}_{split}.npy")
+            crop(src, a, b).save(path)
+            lines.append(f"{split}:\n  - {path}\n")
+        configs[name] = os.path.join(tmp, f"{name}.yaml")
+        with open(configs[name], "w") as f:
+            f.write("".join(lines))
+    cfg = PIMLConfig(**CLI_CFG, epochs=CLI_EPOCHS, finetune_flag=True,
+                     resume=True, data_config=configs["pretrain"],
+                     ft_data_config=configs["finetune"],
+                     save_dir=os.path.join(tmp, "ck"), exp_name="cli",
+                     model_name_suffix="smoke")
+
+    def logged(epochs, jsonl):
+        stream = io.StringIO()
+        logger = MetricLogger(jsonl_path=jsonl, stream=stream)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        results = run(cfg.replace(epochs=epochs), logger, device=dev)
+        torch.cuda.synchronize()
+        logger.close()
+        with open(jsonl) as f:
+            stamped = [json.loads(line) for line in f]
+        return results, stamped, stream.getvalue(), time.perf_counter() - t0
+
+    results, recs, text, wall = logged(CLI_EPOCHS,
+                                       os.path.join(tmp, "run.jsonl"))
+    rows = [int(x) for x in re.findall(r"train (\d+), valid (\d+)",
+                                       text)[0]]
+    pre = [r for r in recs if "acc_pred" in r]
+    pre_val = [r for r in recs if "val_mse" in r and "val_coll" not in r]
+    ft_val = [r for r in recs if "val_coll" in r]
+    tests = [r for r in recs if "test_ot" in r]
+    losses = [v for r in recs for k, v in r.items() if "loss" in k]
+    if len(pre) != CLI_EPOCHS or len(ft_val) != CLI_EPOCHS + 1 \
+            or len(tests) != 2:
+        raise AssertionError(f"CLI: {len(pre)} pretrain epochs, "
+                             f"{len(ft_val)} validations, {len(tests)} tests")
+    if not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"CLI: losses {losses}")
+    for r in tests:
+        if not (math.isfinite(r["test_ot"]) and math.isfinite(r["test_mmd"])):
+            raise AssertionError(f"CLI: test OT / MMD {r}")
+    files = [checkpoint_path(cfg, False), checkpoint_path(cfg, True)]
+    files += [os.path.join(f + "_resume", f"step_{CLI_EPOCHS - 1}.pt")
+              for f in files]
+    missing = [f for f in files if not os.path.isfile(f)]
+    if missing:
+        raise AssertionError(f"CLI: checkpoints missing: {missing}")
+    pre_s = [pre[0]["time"]] + [b["time"] - a["time"]
+                                for a, b in zip(pre, pre[1:])]
+    ft_s = [b["ts"] - a["ts"] for a, b in zip(ft_val, ft_val[1:])]
+    last_pre = pre_val[-1]["ts"]
+    rec = dict(
+        scenes={k: v for k, v in CLI_SPLITS.items()},
+        train_rows=rows[0], valid_rows=rows[1], wall_s=wall,
+        pretrain_s_per_epoch=pre_s,
+        pretrain_rows_per_s=[rows[0] / s for s in pre_s],
+        finetune_s_per_epoch=ft_s,
+        test_eval_s=[tests[0]["ts"] - last_pre,
+                     tests[1]["ts"] - ft_val[-1]["ts"]],
+        pretrain_val=[r["val_loss"] for r in pre_val],
+        finetune_val=[r["val_loss"] for r in ft_val],
+        test=[{k: r[k] for k in ("test_mae", "test_ot", "test_mmd",
+                                 "test_coll")} for r in tests],
+        results=results)
+
+    # resume: one more epoch, from the checkpoints of the run above
+    _, again, _, again_wall = logged(CLI_EPOCHS + 1,
+                                     os.path.join(tmp, "again.jsonl"))
+    resumed = [r for r in again if "epoch" in r and "acc_pred" in r
+               or "val_mse" in r and "val_coll" not in r]
+    ft_epochs = [r["epoch"] for r in again if "coll_loss" in r]
+    if [r["epoch"] for r in resumed] != [CLI_EPOCHS] * 2 \
+            or ft_epochs != [CLI_EPOCHS]:
+        raise AssertionError(f"CLI resume: pretrain records {resumed}, "
+                             f"finetune epochs {ft_epochs}")
+    whole_cfg = cfg.replace(epochs=CLI_EPOCHS + 1, resume=False,
+                            save_dir=os.path.join(tmp, "whole"))
+    synthetic = PointwiseDataset(device=dev)
+    synthetic.load_data(cfg.data_config)
+    whole_cfg = synthetic.build_dataset(whole_cfg)
+    whole_log = MetricLogger(stream=io.StringIO())
+    Trainer(whole_cfg, whole_log).train_pointwise(synthetic.train_data,
+                                                  synthetic.valid_data)
+    whole = [r for r in whole_log.records if r.get("epoch") == CLI_EPOCHS]
+
+    def strip(r):
+        return {k: v for k, v in r.items() if k not in ("time", "ts")}
+
+    if [strip(r) for r in resumed] != [strip(r) for r in whole]:
+        raise AssertionError(f"CLI resume: {resumed} vs uninterrupted "
+                             f"{whole}")
+    rec.update(resume_wall_s=again_wall, resumed_epoch=CLI_EPOCHS,
+               resumed_equals_uninterrupted=True,
+               resumed_records=[strip(r) for r in resumed])
+    say("cli_pipeline", **rec)
+    return rec
+
+
 def main():
     import torch
 
@@ -500,13 +723,15 @@ def main():
     t1 = time.perf_counter()
     metrics = evaluate_rollouts(model, cfg, [data])
     t2 = time.perf_counter()
-    for key in ("loss", "mse", "mae", "collision", "hard_collision"):
+    for key in ("loss", "mse", "mae", "ot", "mmd", "collision",
+                "hard_collision"):
         if not math.isfinite(getattr(metrics, key)):
             raise AssertionError(f"GC window: {key} is not finite")
     say("gc_window", frames=data.num_frames, agents=data.num_pedestrians,
         obstacles=int(data.obstacles.shape[0]),
         make_time_indexed_s=t1 - t0, eval_s=t2 - t1,
         metrics=dict(loss=metrics.loss, mse=metrics.mse, mae=metrics.mae,
+                     ot=metrics.ot, mmd=metrics.mmd,
                      collision=metrics.collision,
                      hard_collision=metrics.hard_collision))
 
@@ -518,16 +743,18 @@ def main():
         arrays[key] = arrays[key][:GC_SLICE_FRAMES]
     cpu_model = trained_model("cpu")[1]
     m_gpu = evaluate_rollouts(
-        model, cfg, [make_time_indexed(cfg, Scene.from_arrays(arrays, dev))])
+        model, cfg, [make_time_indexed(cfg, Scene.from_arrays(arrays, dev))],
+        test_flag=True)
     m_cpu = evaluate_rollouts(
-        cpu_model, cfg, [make_time_indexed(cfg, Scene.from_arrays(arrays))])
-    for key in ("mse", "mae", "collision", "hard_collision"):
+        cpu_model, cfg, [make_time_indexed(cfg, Scene.from_arrays(arrays))],
+        test_flag=True)
+    for key in ("mse", "mae", "ot", "mmd", "collision", "hard_collision"):
         a, b = getattr(m_gpu, key), getattr(m_cpu, key)
         if abs(a - b) > 1e-4 * max(abs(b), 1e-12):
             raise AssertionError(f"GC slice {key}: GPU {a} vs CPU {b}")
-    say("gc_slice_gpu_vs_cpu", frames=GC_SLICE_FRAMES, mse=[m_gpu.mse, m_cpu.mse],
-        mae=[m_gpu.mae, m_cpu.mae],
-        collision=[m_gpu.collision, m_cpu.collision])
+    say("gc_slice_gpu_vs_cpu", frames=GC_SLICE_FRAMES,
+        **{key: [getattr(m_gpu, key), getattr(m_cpu, key)]
+           for key in ("mse", "mae", "ot", "mmd", "collision")})
 
     # ---- 8. K2 with a channel axis -----------------------------------------
     g = torch.Generator().manual_seed(SEED + 1)
@@ -697,6 +924,13 @@ def main():
     if abs(again - state.best_val) > 1e-6 * abs(state.best_val):
         raise AssertionError(f"finetune: reloaded best checkpoint gives "
                              f"{again}, best was {state.best_val}")
+
+    # ---- 12. OT and MMD at dense N ------------------------------------------
+    dense_metrics(dev, N_AGENTS)
+
+    # ---- 13. the CLI pipeline -------------------------------------------------
+    with tempfile.TemporaryDirectory() as tmp:
+        cli_pipeline(dev, tmp)
 
     kernels = [
         dict(name="pairwise_topk (K1)", route="cuda",

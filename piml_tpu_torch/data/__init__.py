@@ -1,9 +1,24 @@
-from piml_tpu_torch.data.datasets import channel_batches  # noqa: F401
+from piml_tpu_torch.data.datasets import (  # noqa: F401
+    FinetuneDataset,
+    PointwiseDataset,
+    VisDataset,
+    apply_config_augmentation,
+    augment_scenes,
+    channel_batches,
+    load_scenes,
+    perturb_velocity,
+    split_train_val_test,
+)
 from piml_tpu_torch.data.views import (  # noqa: F401
     ChanneledData,
+    PointwiseData,
     TimeIndexedData,
     make_time_indexed,
+    merge_pointwise,
     neighbor_config,
+    pad_agents,
+    slice_frames,
     to_channeled,
+    to_pointwise,
     window_slice,
 )

@@ -1,18 +1,22 @@
-"""The frame-keyed dataset view of one scene, and its windowed view.
+"""The dataset views of one scene: frame-keyed, pointwise and windowed.
 
 Counterpart of ``piml_tpu/data/views.py`` (reference: src/data/data.py
-``TimeIndexedPedData``, :746-863, and ``ChanneledPedData``, :1046-1160):
-model inputs, labels, masks and the raw kinematics a rollout needs, as
-tensors on the scene's device; :func:`to_channeled` cuts them into the
-window channels the BPTT finetune trains on.  There is no on-disk feature
-cache: the feature pass is rebuilt on every call.
+``TimeIndexedPedData``, :746-863, ``PointwisePedData``, :958-1043, and
+``ChanneledPedData``, :1046-1160): model inputs, labels, masks and the raw
+kinematics a rollout needs, as tensors on the scene's device;
+:func:`to_pointwise` flattens the predictable rows for the pretrain, and
+:func:`to_channeled` cuts the window channels the BPTT finetune trains on.
+There is no on-disk feature cache: the feature pass is rebuilt on every
+call.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Sequence, Union
+import math
+from typing import Any, Dict, List, Optional, Sequence, Union
 
+import numpy as np
 import torch
 
 from piml_tpu_torch.config import PIMLConfig
@@ -158,6 +162,130 @@ def make_time_indexed(cfg: PIMLConfig, scene: Scene,
     )
 
 
+# the fields with a leading frame axis; they gain the leading window-channel
+# axis in the windowed view, and the others (abnormal_mask, dest_num,
+# waypoints, obstacles, desired_speed) are per-scene constants
+T_KEYED = (
+    "ped_features", "obs_features", "self_features", "labels",
+    "mask_p", "mask_v", "mask_a", "mask_p_pred", "mask_v_pred",
+    "mask_a_pred", "position", "velocity", "acceleration", "destination",
+    "dest_idx",
+)
+
+
+def slice_frames(data: TimeIndexedData, start: int,
+                 stop: int) -> TimeIndexedData:
+    """The frames [start, stop) of a time-indexed view (reference:
+    ``TimeIndexedPedData(*self.dataset[test_idx])``, dataset.py:248)."""
+    return dataclasses.replace(
+        data, **{k: getattr(data, k)[start:stop] for k in T_KEYED})
+
+
+def pad_agents(data: TimeIndexedData, multiple: int) -> TimeIndexedData:
+    """Pad the agent axis to a multiple of ``multiple`` with inert slots:
+    NaN positions (never spawned, never selected as neighbours), zero
+    masks, so every metric and loss is unchanged."""
+    n = data.num_pedestrians
+    extra = -n % multiple
+    if extra == 0:
+        return data
+
+    def pad(x, axis, value):
+        shape = list(x.shape)
+        shape[axis] = extra
+        return torch.cat([x, torch.full(shape, value, dtype=x.dtype,
+                                        device=x.device)], dim=axis)
+
+    return TimeIndexedData(
+        ped_features=pad(data.ped_features, -3, 0.0),
+        obs_features=pad(data.obs_features, -3, 0.0),
+        self_features=pad(data.self_features, -2, 0.0),
+        labels=pad(data.labels, -2, 0.0),
+        mask_p=pad(data.mask_p, -1, 0.0),
+        mask_v=pad(data.mask_v, -1, 0.0),
+        mask_a=pad(data.mask_a, -1, 0.0),
+        mask_p_pred=pad(data.mask_p_pred, -1, 0.0),
+        mask_v_pred=pad(data.mask_v_pred, -1, 0.0),
+        mask_a_pred=pad(data.mask_a_pred, -1, 0.0),
+        abnormal_mask=pad(data.abnormal_mask, -1, 1.0),
+        position=pad(data.position, -2, math.nan),
+        velocity=pad(data.velocity, -2, 0.0),
+        acceleration=pad(data.acceleration, -2, 0.0),
+        destination=pad(data.destination, -2, math.nan),
+        dest_idx=pad(data.dest_idx, -1, 0),
+        dest_num=pad(data.dest_num, -1, 1),
+        waypoints=pad(data.waypoints, -2, math.nan),
+        obstacles=data.obstacles,
+        desired_speed=pad(data.desired_speed, -1, 0.0),
+        meta_data=data.meta_data,
+    )
+
+
+# ---------------------------------------------------------------------------
+# pointwise view
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class PointwiseData:
+    """Flattened single-step training rows (reference: data.py:958-1043)."""
+
+    ped_features: torch.Tensor    # (R, k1, 6)
+    obs_features: torch.Tensor    # (R, k2, 6)
+    self_features: torch.Tensor   # (R, d)
+    labels: torch.Tensor          # (R, 6 + k1): next-step [p, v, a, coll]
+    meta_data: Dict[str, Any] = dataclasses.field(default_factory=dict)
+
+    def __len__(self) -> int:
+        return self.labels.shape[0]
+
+    @property
+    def time_unit(self) -> float:
+        return float(self.meta_data["time_unit"])
+
+
+def to_pointwise(data: TimeIndexedData,
+                 frames: Optional[Sequence[int]] = None) -> PointwiseData:
+    """The predictable rows (``mask_a_pred``) with labels shifted one step
+    forward (reference: data.py:1007-1038).  The row filter is decided on
+    the host, as in the JAX package; the rows stay on the data's device.
+    ``frames`` restricts the rows to those frame indices."""
+    mask_t = data.mask_a_pred.cpu().numpy() > 0
+    if frames is not None:
+        keep = np.zeros(mask_t.shape[0], bool)
+        keep[np.asarray(frames, int)] = True
+        mask_t = mask_t & keep[:, None]
+    rows = torch.from_numpy(np.nonzero(mask_t.reshape(-1))[0]).to(
+        data.labels.device)
+    labels = torch.cat([data.labels[1:], torch.zeros_like(data.labels[:1])])
+
+    def flat(x):
+        return x.reshape((-1,) + x.shape[2:])[rows]
+
+    return PointwiseData(
+        ped_features=flat(data.ped_features),
+        obs_features=flat(data.obs_features),
+        self_features=flat(data.self_features),
+        labels=flat(labels), meta_data=data.meta_data)
+
+
+def merge_pointwise(parts: List[PointwiseData]) -> PointwiseData:
+    """Concatenate pointwise datasets (reference: data.py:994-1002)."""
+    if len(parts) == 1:
+        return parts[0]
+    tu = parts[0].time_unit
+    if any(abs(p.time_unit - tu) > 1e-9 for p in parts):
+        raise ValueError("PointwiseData with different time_unit cannot be "
+                         "merged")
+
+    def cat(attr):
+        return torch.cat([getattr(p, attr) for p in parts], dim=0)
+
+    return PointwiseData(
+        ped_features=cat("ped_features"), obs_features=cat("obs_features"),
+        self_features=cat("self_features"), labels=cat("labels"),
+        meta_data=parts[0].meta_data)
+
+
 # ---------------------------------------------------------------------------
 # channeled (windowed) view
 # ---------------------------------------------------------------------------
@@ -183,21 +311,10 @@ def window_slice(x: torch.Tensor, stride: int, mode: str) -> torch.Tensor:
     raise NotImplementedError(mode)
 
 
-# the fields that gain the leading window-channel axis; the others
-# (abnormal_mask, dest_num, waypoints, obstacles, desired_speed) are
-# per-scene constants shared by the channels
-CHANNEL_FIELDS = (
-    "ped_features", "obs_features", "self_features", "labels",
-    "mask_p", "mask_v", "mask_a", "mask_p_pred", "mask_v_pred",
-    "mask_a_pred", "position", "velocity", "acceleration", "destination",
-    "dest_idx",
-)
-
-
 @dataclasses.dataclass
 class ChanneledData:
     """Windowed rollout-training view (reference: data.py:1046-1160): the
-    ``CHANNEL_FIELDS`` carry a leading channel axis C, ``(C, t, N, ...)``."""
+    ``T_KEYED`` carry a leading channel axis C, ``(C, t, N, ...)``."""
 
     ped_features: torch.Tensor    # (C, t, N, k1, 6)
     obs_features: torch.Tensor
@@ -239,7 +356,7 @@ class ChanneledData:
         idx = torch.as_tensor(idx, dtype=torch.long,
                               device=self.ped_features.device)
         return dataclasses.replace(
-            self, **{f: getattr(self, f)[idx] for f in CHANNEL_FIELDS})
+            self, **{f: getattr(self, f)[idx] for f in T_KEYED})
 
 
 def to_channeled(data: TimeIndexedData, stride: int = 25,
@@ -247,7 +364,7 @@ def to_channeled(data: TimeIndexedData, stride: int = 25,
     """Cut a scene's view into ``stride``-frame window channels."""
     return ChanneledData(
         **{f: window_slice(getattr(data, f), stride, mode)
-           for f in CHANNEL_FIELDS},
+           for f in T_KEYED},
         abnormal_mask=data.abnormal_mask, dest_num=data.dest_num,
         waypoints=data.waypoints, obstacles=data.obstacles,
         desired_speed=data.desired_speed, meta_data=data.meta_data)

@@ -24,7 +24,8 @@ from piml_tpu_torch.engine.rollout import (
     rollout,
     spawn_frames_from_scene,
 )
-from piml_tpu_torch.metrics import collision_count, mae_with_time_mask
+from piml_tpu_torch.metrics import (collision_count, mae_with_time_mask,
+                                    mmd_with_time_mask, ot_with_time_mask)
 from piml_tpu_torch.physics import collision_detection_single_frame
 from piml_tpu_torch.physics.features import _GATE
 from piml_tpu_torch.train import losses
@@ -99,8 +100,8 @@ class RolloutMetrics:
     loss: float
     mse: float
     mae: float
-    ot: Optional[float]
-    mmd: Optional[float]
+    ot: float
+    mmd: float
     collision: float
     hard_collision: float
 
@@ -111,32 +112,36 @@ def evaluate_rollouts(model: Callable, cfg: PIMLConfig, datasets, *,
     """Rollout + metrics over a list of scenes (reference:
     simulators.py:465-554, list branch).
 
-    Reports ``loss``, ``mse``, ``mae`` (per predictable row) and the soft /
-    hard ``collision`` counts.  ``ot`` and ``mmd`` are None: Sinkhorn OT
-    and MMD are not ported yet."""
+    Reports ``loss``, ``mse``, ``mae`` (per predictable row), ``ot`` and
+    ``mmd`` (per frame with predictable agents; ``mae``, ``ot`` and
+    ``mmd`` under ``test_flag`` only, 0 otherwise) and the soft / hard
+    ``collision`` counts.  One host read per scene."""
     ecfg = engine_config(cfg, retire=True, track_collisions=False,
                          track_labels=False)
     if isinstance(datasets, TimeIndexedData):
         datasets = [datasets]
 
-    mae_sum = mse_sum = coll_sum = hard_sum = loss_sum = 0.0
-    n_rows = 0
+    mae_sum = mse_sum = ot_sum = mmd_sum = 0.0
+    coll_sum = hard_sum = loss_sum = 0.0
+    n_rows = n_frames = 0
     for data in datasets:
         res = eval_rollout(model, ecfg, data, cfg.skip_frames)
         t0 = cfg.skip_frames
         coll = collision_count(res.position[t0:], cfg.collision_threshold)
         hard = collision_count(res.position[t0:],
                                cfg.collision_threshold / 2)
-        p_post = post_process(data, res.position, res.mask_p,
-                              data.mask_p_pred)
+        mask_pred = data.mask_p_pred
+        p_post = post_process(data, res.position, res.mask_p, mask_pred)
         labels = data.labels[..., :2]
-        m = (data.mask_p_pred == 1)[..., None]
+        m = (mask_pred == 1)[..., None]
         mse = torch.where(m, (p_post - labels) ** 2, 0.0).sum()
-        rows = (data.mask_p_pred == 1).sum()
-        scal = [coll, hard, mse, rows]
+        rows = (mask_pred == 1).sum()
+        frames = (mask_pred.sum(dim=-1) > 0).sum()
+        scal = [coll, hard, mse, rows, frames]
         if test_flag:
-            scal.append(mae_with_time_mask(p_post, labels, data.mask_p_pred,
-                                           "sum"))
+            scal += [mae_with_time_mask(p_post, labels, mask_pred, "sum"),
+                     ot_with_time_mask(p_post, labels, mask_pred, "sum"),
+                     mmd_with_time_mask(p_post, labels, mask_pred, "sum")]
         # one host sync per scene
         vals = torch.stack([s.to(torch.float64) for s in scal]).tolist()
         coll, hard, mse = vals[0], vals[1], vals[2]
@@ -144,17 +149,22 @@ def evaluate_rollouts(model: Callable, cfg: PIMLConfig, datasets, *,
         hard_sum += hard
         loss = mse
         if test_flag:
-            mae_sum += vals[4]
+            mae_sum += vals[5]
+            ot_sum += vals[6]
+            mmd_sum += vals[7]
         else:
             loss = loss + cfg.val_coll_weight * (coll + hard)
         n_rows += int(vals[3])
+        n_frames += int(vals[4])
         loss_sum += loss
         mse_sum += mse
 
     n_rows = max(n_rows, 1)
+    n_frames = max(n_frames, 1)
     return RolloutMetrics(
         loss=loss_sum / n_rows, mse=mse_sum / n_rows, mae=mae_sum / n_rows,
-        ot=None, mmd=None, collision=coll_sum, hard_collision=hard_sum)
+        ot=ot_sum / n_frames, mmd=mmd_sum / n_frames,
+        collision=coll_sum, hard_collision=hard_sum)
 
 
 # ---------------------------------------------------------------------------

@@ -10,8 +10,9 @@ reads the original input, so only the last block's output survives
 (model.py:115-119): it builds that one block only.
 
 Dropout is live only when a forward is given random generators (the JAX
-package's ``deterministic=False`` with a dropout key), one per slice of
-the input's leading axis (the window channels of the finetune): its masks
+package's ``deterministic=False`` with a dropout key): one for a batch of
+pretrain rows, or one per slice of the input's leading axis (the window
+channels of the finetune).  Its masks
 come from those ``torch.Generator``s, never from the global RNG, so a
 frame that activation checkpointing recomputes draws the same masks
 again.
@@ -19,7 +20,7 @@ again.
 
 from __future__ import annotations
 
-from typing import Callable, Optional, Sequence
+from typing import Callable, Optional, Sequence, Union
 
 import torch
 from torch import nn
@@ -77,16 +78,20 @@ class ResBlock(nn.Module):
         return x + self.MLP_0(x)
 
 
-Rng = Optional[Sequence[torch.Generator]]
+Rng = Optional[Union[torch.Generator, Sequence[torch.Generator]]]
 
 
 def dropout(x: torch.Tensor, p: float, rng: Rng) -> torch.Tensor:
     """Inverted dropout as flax's ``nn.Dropout``: keep with probability
-    ``1 − p`` and scale by ``1 / (1 − p)``.  ``rng``: one generator per
-    slice of the leading axis, each slice's mask from its own stream;
-    None = identity."""
+    ``1 − p`` and scale by ``1 / (1 − p)``.  ``rng``: one generator for
+    the whole tensor (the pretrain's row batches), or one per slice of the
+    leading axis, each slice's mask from its own stream; None = identity."""
     if rng is None or p <= 0:
         return x
+    if isinstance(rng, torch.Generator):
+        keep = torch.bernoulli(torch.full(x.shape, 1.0 - p, device=x.device),
+                               generator=rng)
+        return torch.where(keep > 0, x / (1.0 - p), 0.0)
     if len(rng) != x.shape[0]:
         raise ValueError(f"dropout: {len(rng)} generators for a leading "
                          f"axis of {x.shape[0]}")

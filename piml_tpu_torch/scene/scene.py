@@ -8,7 +8,8 @@ explicit masks, NaN kept in ``position`` / ``destination`` / ``waypoints``
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Union
+import math
+from typing import Any, Dict, Optional, Sequence, Union
 
 import numpy as np
 import torch
@@ -83,3 +84,92 @@ class Scene:
             mask_a=f32(d["mask_a"]),
             meta_data=dict(d["meta_data"]),
         )
+
+    def save(self, path: str) -> None:
+        """Write the scene back as a v2.2 ``.npy`` file."""
+        codec.encode(path, self.meta_data, self.position.cpu().numpy(),
+                     self.mask_p.cpu().numpy(), self.waypoints.cpu().numpy(),
+                     self.destination.cpu().numpy(),
+                     self.obstacles.cpu().numpy())
+
+
+def crop(scene: Scene, start: int, stop: int,
+         agents: Optional[Sequence[int]] = None) -> Scene:
+    """Frames ``[start, stop)`` as a scene of their own, on the scene's
+    device: the agents present in them (of ``agents``, when given), each
+    with its frames in the window and the waypoints it follows there, from
+    the one active at its first frame.  Built as a v2.2 file would decode
+    (finite differences end at the window's last frame), so
+    :meth:`Scene.save` writes it back losslessly."""
+    pos = scene.position[start:stop].cpu().numpy()
+    mask = scene.mask_p[start:stop].cpu().numpy() == 1
+    dest_idx = scene.dest_idx[start:stop].cpu().numpy()
+    waypoints = scene.waypoints.cpu().numpy()
+    ids = range(scene.num_pedestrians) if agents is None else agents
+    trajectories, destinations = [], []
+    for i in ids:
+        frames = np.nonzero(mask[:, i])[0]
+        if frames.size == 0:
+            continue
+        trajectories.append([(float(pos[f, i, 0]), float(pos[f, i, 1]),
+                              int(f)) for f in frames])
+        relays = dest_idx[frames, i]
+        destinations.append([
+            (float(waypoints[j, i, 0]), float(waypoints[j, i, 1]),
+             int(frames[np.argmax(relays == j)]))
+            for j in range(int(relays[0]), int(relays.max()) + 1)])
+    d = codec.decode_arrays(dict(scene.meta_data), trajectories,
+                            destinations, scene.obstacles.cpu().numpy())
+    return Scene.from_arrays(d, device=scene.position.device)
+
+
+def rotate(scene: Scene, theta_deg: float) -> Scene:
+    """Rotation augmentation (reference:
+    src/utils/data_augmentation.py:11-40)."""
+    th = math.radians(theta_deg)
+    return _linear_map(scene, [[math.cos(th), -math.sin(th)],
+                               [math.sin(th), math.cos(th)]])
+
+
+def mirror(scene: Scene, theta_deg: float) -> Scene:
+    """Mirror augmentation about the line at ``theta_deg`` (reference:
+    src/utils/data_augmentation.py:42-69)."""
+    th = math.radians(theta_deg)
+    return _linear_map(scene, [[math.cos(2 * th), math.sin(2 * th)],
+                               [math.sin(2 * th), -math.cos(2 * th)]])
+
+
+def _linear_map(scene: Scene, mat) -> Scene:
+    mat = torch.tensor(mat, dtype=torch.float32,
+                       device=scene.position.device)
+
+    def ap(x):
+        return torch.einsum("ij,...j->...i", mat, x)
+
+    return dataclasses.replace(
+        scene,
+        position=ap(scene.position),
+        velocity=ap(scene.velocity),
+        acceleration=ap(scene.acceleration),
+        destination=ap(scene.destination),
+        waypoints=ap(scene.waypoints),
+        obstacles=(ap(scene.obstacles) if scene.obstacles.numel()
+                   else scene.obstacles),
+    )
+
+
+def random_walk_noise(generator: torch.Generator, velocity: torch.Tensor,
+                      mask_v: torch.Tensor,
+                      noise_std_last_step: float) -> torch.Tensor:
+    """GNS-style cumulative velocity noise (reference:
+    src/functions/noises.py:9-19): per-frame steps of std
+    ``noise_std_last_step / sqrt(T)`` on present frames, summed over time,
+    zero where ``mask_v == 0``.  The steps are drawn from ``generator`` on
+    its own device, so a seed gives the same noise on every device."""
+    t = velocity.shape[0]
+    noise = torch.randn(velocity.shape, generator=generator,
+                        device=generator.device).to(velocity.device)
+    noise = noise * (noise_std_last_step / t ** 0.5)
+    noise = noise * mask_v[..., None]
+    noise = torch.cumsum(noise, dim=0)
+    return noise * mask_v[..., None]

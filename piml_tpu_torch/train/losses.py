@@ -28,7 +28,11 @@ def mse_loss(pred: torch.Tensor, labels: torch.Tensor,
 
 def l1_reg_loss(embeddings: torch.Tensor, weight: float = 1e-3,
                 mode: str = "none") -> torch.Tensor:
-    return reduction(weight * embeddings.abs(), mode)
+    # |x| with the JAX package's derivative at 0 (``jnp.abs``: +1; torch's
+    # ``abs`` gives 0): zero-feature neighbour slots of a zero-bias model
+    # send exactly zero messages
+    abs_e = torch.where(embeddings >= 0, embeddings, -embeddings)
+    return reduction(weight * abs_e, mode)
 
 
 def time_decay_weights(t_len: int, time_decay: float, reverse: bool = False,

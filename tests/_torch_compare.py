@@ -13,7 +13,22 @@ they occur instead of loosening the tolerance:
   side and left out on the other.
 """
 
+import os
+
 import numpy as np
+import torch
+
+
+def _share_cores() -> None:
+    """Under pytest-xdist every worker process runs torch at once; an
+    intra-op pool as wide as the machine in each of them oversubscribes
+    the cores, and OpenMP's spin-waits then stall every worker.  Each
+    worker takes its share of the cores instead."""
+    workers = int(os.environ.get("PYTEST_XDIST_WORKER_COUNT", "1"))
+    torch.set_num_threads(max(1, (os.cpu_count() or 1) // workers))
+
+
+_share_cores()
 
 
 def assert_features_match(ref, got, dist_threshold, atol=1e-5, tie_tol=1e-3,

@@ -123,13 +123,18 @@ def test_eval_rollout_trajectories_match_jax(gc_slice):
 
 def test_evaluate_rollouts_matches_jax(gc_slice):
     g = gc_slice
-    ref = jax_evaluate(g["params"], g["apply_fn"], g["jcfg"], [g["jdata"]])
-    got = evaluate_rollouts(g["model"], g["tcfg"], [g["tdata"]])
+    ref = jax_evaluate(g["params"], g["apply_fn"], g["jcfg"], [g["jdata"]],
+                       test_flag=True)
+    got = evaluate_rollouts(g["model"], g["tcfg"], [g["tdata"]],
+                            test_flag=True)
     for key in ("loss", "mse", "mae", "collision", "hard_collision"):
         assert getattr(got, key) == pytest.approx(getattr(ref, key),
                                                   rel=1e-4), key
-    assert got.ot is None and got.mmd is None   # not ported yet
-    assert got.collision > 0 and got.mse > 0
+    # OT and MMD per frame with predictable agents, at the tolerances of
+    # tests/test_torch_metrics.py
+    assert got.ot == pytest.approx(ref.ot, rel=1e-4, abs=1e-5)
+    assert got.mmd == pytest.approx(ref.mmd, rel=1e-4, abs=1e-6)
+    assert got.collision > 0 and got.mse > 0 and got.ot > 0 and got.mmd > 0
 
 
 def test_validation_loss_matches_jax(gc_slice):

@@ -28,6 +28,7 @@ import pytest
 import torch
 from flax.serialization import msgpack_restore
 
+import _torch_compare  # noqa: F401  (shares the cores between workers)
 from piml_tpu.config import PIMLConfig as JaxConfig
 from piml_tpu.data import make_time_indexed as jax_make_time_indexed
 from piml_tpu.data.datasets import channel_batches as jax_channel_batches

@@ -3,6 +3,7 @@
 
     python3 tools/profile_torch_stress.py [--frames 10]
     python3 tools/profile_torch_stress.py --train [--steps 2]
+    python3 tools/profile_torch_stress.py --metrics [--steps 20]
 
 Builds the dense-stress scene of ``chip_smoke.py`` (12,685 agents, 4,096
 obstacles, trained ``pinnsf_bm``), warms up, then traces ``--frames``
@@ -16,6 +17,12 @@ that span, and the top kernels by device time.  Needs a CUDA device.
 ``chip_smoke.py``'s two training shapes — the dense-N step (phase 9) and
 the paper-shape step (phase 10) — per step instead of per frame, plus the
 untraced wall split into forward, backward and optimizer.
+
+``--metrics``: the same for ``ot_with_time_mask`` and
+``mmd_with_time_mask`` on ``chip_smoke.py``'s phase-12 frames (12,685
+agents), per frame; and for pretrain steps (``--steps`` batches of 128
+seeded rows through the paper-width ``pinnsf_bm`` with live dropout),
+per step.
 """
 
 import argparse
@@ -113,11 +120,91 @@ def train_steps(steps: int, top: int) -> None:
         }))
 
 
+def traced(fn, reps):
+    """Wall seconds of ``reps`` calls of ``fn`` under the profiler, and
+    the trace's device rows."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()                                               # warm-up
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        total = time.perf_counter() - t0
+    return total, device_rows(prof)
+
+
+def metrics_and_pretrain(steps: int, top: int) -> None:
+    import torch
+
+    import chip_smoke
+    from piml_tpu_torch.config import PIMLConfig
+    from piml_tpu_torch.data import PointwiseData
+    from piml_tpu_torch.metrics import mmd_with_time_mask, ot_with_time_mask
+    from piml_tpu_torch.train.trainer import Trainer, make_optimizer
+    from piml_tpu_torch.utils import MetricLogger
+
+    dev = torch.device(chip_smoke.DEVICE)
+    n, frames = chip_smoke.N_AGENTS, chip_smoke.OT_FRAMES
+    g = torch.Generator().manual_seed(chip_smoke.SEED + 2)
+    p = torch.rand((frames, n, 2), generator=g) * 200.0
+    q = (p + 0.5 * torch.randn(p.shape, generator=g)).to(dev)
+    p, ones = p.to(dev), torch.ones((frames, n), device=dev)
+
+    def report(label, unit, count, total, rows):
+        busy_us, kernels = rows
+        print(json.dumps({
+            label: count, f"wall_ms_per_{unit}_profiled": total / count * 1e3,
+            f"device_busy_ms_per_{unit}": busy_us / 1e3 / count,
+            "device_idle_share": 1.0 - busy_us / 1e6 / total,
+            "top_kernels": [dict(name=k[:80], ms=us / 1e3 / count,
+                                 calls=c / count)
+                            for us, k, c in kernels[:top]]}))
+
+    for label, fn in (("ot_frames", ot_with_time_mask),
+                      ("mmd_frames", mmd_with_time_mask)):
+        total, rows = traced(lambda: fn(p, q, ones, "sum"), 1)
+        report(label, "frame", frames, total, rows)
+
+    cfg = PIMLConfig(**chip_smoke.CLI_CFG)
+    rows = 128 * steps
+    data = PointwiseData(
+        ped_features=torch.randn((rows, cfg.topk_ped, 6), generator=g),
+        obs_features=torch.randn((rows, cfg.topk_obs, 6), generator=g),
+        self_features=torch.randn((rows, 7), generator=g),
+        labels=torch.randn((rows, 6 + cfg.topk_ped), generator=g).clamp(0, 1),
+        meta_data={"time_unit": 0.08})
+    data = PointwiseData(**{k: (v.to(dev) if torch.is_tensor(v) else v)
+                            for k, v in vars(data).items()})
+    trainer = Trainer(cfg, MetricLogger(stream=open(os.devnull, "w")))
+    trainer.init_params(data)
+    opt = make_optimizer(cfg, trainer.model.parameters())
+    gen = torch.Generator(device=dev).manual_seed(0)
+
+    def pretrain_steps():
+        for i in range(steps):
+            sl = slice(128 * i, 128 * (i + 1))
+            loss, _ = trainer._pointwise_loss_terms(
+                data.ped_features[sl], data.obs_features[sl],
+                data.self_features[sl], data.labels[sl], gen)
+            opt.zero_grad(set_to_none=True)
+            loss.backward()
+            opt.step()
+
+    total, rows = traced(pretrain_steps, 1)
+    report("pretrain_steps", "step", steps, total, rows)
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--frames", type=int, default=10)
     ap.add_argument("--top", type=int, default=12)
     ap.add_argument("--train", action="store_true")
+    ap.add_argument("--metrics", action="store_true")
     ap.add_argument("--steps", type=int, default=2)
     args = ap.parse_args()
 
@@ -129,6 +216,9 @@ def main():
     sys.path.insert(0, ROOT)
     if args.train:
         train_steps(args.steps, args.top)
+        return
+    if args.metrics:
+        metrics_and_pretrain(max(args.steps, 20), args.top)
         return
     import chip_smoke
     from piml_tpu_torch.physics import NeighborConfig
