@@ -8,10 +8,17 @@ Phases, one line each; any failure raises and exits non-zero:
 1. build the CUDA kernels from ``piml_tpu_torch/csrc`` (timed);
 2. K1 (dense top-k) against its plain PyTorch version at the rollout
    shapes: the 12,685-agent self pass (k = 6) and the 4,096-obstacle pass
-   (k = 10) — bitwise equal; median milliseconds from CUDA events;
+   (k = 10) — bitwise equal; milliseconds from CUDA events around a queued
+   run of launches (``queued_ms``) beside each pass's bound
+   (``kernel_bound``);
 3. K2 (banded top-k) against its plain version at the same shapes —
    bitwise equal, same exactness flag, and equal to K1 on every
-   in-threshold slot when exact;
+   in-threshold slot when exact; times beside the bounds;
+3b. both kernels bitwise against their plain versions on edge cases
+   (``kernel_edge_cases``): a unit lattice (ties across K1's column
+   slices), duplicate positions, absent rows and columns, N not a multiple
+   of 32 or 128, a table narrower than one slice, k = 1 and 16, C = 3 with
+   per-channel and shared tables, an overflowed K2 window;
 4. the dense-stress rollout (N = 12,685, M = 4,096, 50 frames after a
    3-frame warm-up, default ``NeighborConfig``, trained ``pinnsf_bm``
    weights): ms/frame, K2 launches and fallbacks, every live position
@@ -28,7 +35,7 @@ Phases, one line each; any failure raises and exits non-zero:
 8. K2 with its channel axis on the stress scene at C = 2 (the second
    channel a seeded jitter of the first), agent and obstacle pass: the
    batched launch bitwise equal to its plain version and to two
-   single-channel launches; median milliseconds of both;
+   single-channel launches; ``queued_ms`` of both, and the bounds;
 9. the dense-N finetune step (``bench.py:493`` ``bench_train_step_denseN``:
    C = 2 windows × T = 10 frames, 12,685 live agents over 200 m,
    64 obstacles, ``pinnsf_bm`` finetune model with ``pred_acc`` clamped
@@ -62,8 +69,11 @@ Phases, one line each; any failure raises and exits non-zero:
     and its epoch-2 pretrain records equal an uninterrupted 3-epoch
     pretrain's bit for bit.  s/epoch, rows/s, test eval seconds.
 
-The line before the last holds the kernels' record as JSON, and the last
-line is ``{"ok": true, "device": {...}}``.  Launch counts are zeroed just
+The line before the last holds the kernels' record as JSON (per kernel
+and per pass: ms, plain ms, ``bound_ms``, ``bound_by``, ``share`` of the
+bound, ``library_ms`` null: no single PyTorch call computes a
+field-of-view top-k), and the last line is
+``{"ok": true, "device": {...}}``.  Launch counts are zeroed just
 before each main path (phases 4-5, phase 9) and read just after it: they
 count only the main paths' launches.  Phases 12-13 run no kernel of the
 port: dense-N OT and MMD are torch ops, and the CLI pipeline's scenes
@@ -122,12 +132,17 @@ TRAIN_CFG = dict(model="pinnsf_bm", dataset_name="gc2344", dropout=0.0,
                  collision_loss_version="v2", time_unit=0.08)
 
 
+# clock cycles (~17 ms) that hold the stream while queued_ms queues its run
+QUEUE_CYCLES = 30_000_000
+
+
 def say(phase, **kw):
     print(json.dumps({"phase": phase, **kw}), flush=True)
 
 
 def cuda_ms(fn, reps):
-    """Median milliseconds of ``fn()`` by CUDA events, after one warm-up."""
+    """Median milliseconds of ``fn()`` by CUDA events, after one warm-up
+    (the end-to-end metrics of phase 12: the host's dispatch counts)."""
     import torch
 
     fn()
@@ -144,16 +159,39 @@ def cuda_ms(fn, reps):
     return statistics.median(times)
 
 
+def queued_ms(fn, reps):
+    """Milliseconds a kernel pass ``fn()`` takes on the card: CUDA events
+    around a run of ``reps`` calls, over the count, after one warm-up.  The
+    run is queued behind a sleep kernel (``QUEUE_CYCLES``), so the card
+    runs the calls back to back and the host's launch overhead does not
+    show in the device time."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(QUEUE_CYCLES)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
 @contextlib.contextmanager
 def plain_route():
     """Route the kernel wrappers to their plain versions on the card (for
     the comparisons only: the wrappers themselves never fall back)."""
     from piml_tpu_torch.ops import banded, pairwise
 
+    def banded_plain(*args):   # the plain version takes no cell offsets
+        return banded.banded_topk_plain(*args[:-1])
+
     with mock.patch.object(pairwise, "pairwise_topk_cuda",
                            pairwise.pairwise_topk_plain), \
-            mock.patch.object(banded, "banded_topk_cuda",
-                              banded.banded_topk_plain):
+            mock.patch.object(banded, "banded_topk_cuda", banded_plain):
         yield
 
 
@@ -173,6 +211,214 @@ def max_abs_err(a, b):
     if not torch.equal(torch.isfinite(a), torch.isfinite(b)):
         return float("inf")
     return float((a[fin] - b[fin]).abs().max().item()) if fin.any() else 0.0
+
+
+# the H100 SXM's published peaks: HBM3 bandwidth, and the f32 rate of
+# operations that are not fused: the 67 TFLOP/s f32 peak counts a
+# multiply-add as two operations, and under --fmad=false each of a pair's
+# operations is an instruction of its own (132 SMs × 128 lanes × 1.98 GHz)
+HBM_BYTES_PER_S = 3.35e12
+F32_OPS_PER_S = 67e12 / 2
+# a pair's least work: dx, dy, dx², dy², their sum and the compare with the
+# row's k-th distance (the sqrt and field-of-view gate follow only for
+# pairs that can rank)
+OPS_PER_PAIR = 6
+
+
+def kernel_bound(nbytes, pairs):
+    """The least time the card could take: bytes over the memory rate or
+    the pairs' operations over the f32 rate, whichever is larger."""
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = OPS_PER_PAIR * pairs / F32_OPS_PER_S
+    return dict(bound_ms=max(t_bytes, t_ops) * 1e3,
+                bound_by="bytes" if t_bytes >= t_ops else "operations",
+                bound_bytes=nbytes, bound_pairs=pairs)
+
+
+def k1_bound(rows, cols, k):
+    """K1's bound on these inputs: rows (32-byte records, whole sectors),
+    the table (x, y, valid) and outputs moved once; one pair per valid row
+    and valid column."""
+    pairs = int((rows[:, 4] > 0.5).sum()) * int((cols[2] > 0.5).sum())
+    nbytes = 4 * (rows.numel() + cols.numel()) + 8 * rows.shape[0] * k
+    return kernel_bound(nbytes, pairs)
+
+
+def k2_bound(args):
+    """K2's bound on these packed arguments: window starts, geometry, rows,
+    the three table rows the kernel reads (x, y, object id: its ranges come
+    from the cell offsets, so it never reads valid, cx or cy), the offsets
+    and the outputs, moved once; the in-box pairs of ``box_ranges``."""
+    from piml_tpu_torch.ops import banded
+
+    ws, geo, rows, cols, window, grid_dim, k = args[:7]
+    offsets = args[9]
+    ranges = banded.box_ranges(ws, geo, rows, offsets, window, grid_dim)
+    pairs = int((ranges[..., 1] - ranges[..., 0]).sum())
+    table = cols.numel() // cols.shape[-2] * 3
+    nbytes = (4 * (ws.numel() + geo.numel() + rows.numel() + table)
+              + 8 * offsets.numel() + 8 * (rows.numel() // 8) * k)
+    return kernel_bound(nbytes, pairs)
+
+
+def banded_args(selector, *args, **kw):
+    """Run a banded selector: ``(the packed arguments it handed to
+    banded_topk, its result)``.  The kernel takes them all, the plain
+    version all but the last (the cell offsets)."""
+    from piml_tpu_torch.ops import banded
+
+    captured = {}
+    real = banded.banded_topk
+
+    def capture(*a):
+        captured["args"] = a
+        return real(*a)
+
+    with mock.patch.object(banded, "banded_topk", capture):
+        out = selector(*args, **kw)
+    return captured["args"], out
+
+
+def pass_record(ms, plain_ms, bound):
+    """One kernel pass's times beside its bound."""
+    return dict(ms=ms, plain_ms=plain_ms, **bound,
+                share=bound["bound_ms"] / ms)
+
+
+def kernel_record(passes, max_err):
+    """A kernel's line in the record: its single-frame passes summed (the
+    ``batched_*`` passes apart), each pass's ``ms_<pass>`` and
+    ``plain_ms_<pass>``, and each pass in full under ``passes``."""
+    single = [p for name, p in passes.items()
+              if not name.startswith("batched_")]
+    by = max(single, key=lambda p: p["bound_ms"])["bound_by"]
+    ms = sum(p["ms"] for p in single)
+    bound = sum(p["bound_ms"] for p in single)
+    flat = {}
+    for name, p in passes.items():
+        flat[f"ms_{name}"] = p["ms"]
+        flat[f"plain_ms_{name}"] = p["plain_ms"]
+    return dict(ms=ms, plain_ms=sum(p["plain_ms"] for p in single),
+                max_abs_err=max_err, bound_ms=bound, bound_by=by,
+                share=bound / ms, library_ms=None, **flat, passes=passes)
+
+
+def kernel_edge_cases(dev):
+    """Phase 3b: both kernels bit for bit against their plain versions on
+    inputs that test the slices' merge and K2's box ranges: agents on a
+    unit lattice (distances tie in groups; ties break by id across
+    slices), duplicate positions, absent rows and columns with N not a
+    multiple of 32 or 128, a table narrower than one slice, k = 1 and
+    k = 16, C = 3 with per-channel and with shared tables, and a K2 tile
+    whose window overflows (exact is False)."""
+    import numpy as np
+    import torch
+
+    from piml_tpu_torch.ops import banded, pairwise
+    from piml_tpu_torch.physics import heading_direction
+
+    rs = np.random.RandomState(SEED + 3)
+    checks = []
+
+    def t(x):
+        return torch.as_tensor(np.asarray(x, np.float32), device=dev)
+
+    def head(vel):
+        return heading_direction(t(vel), time_axis=False)
+
+    def spread(n, extent):
+        return (rs.rand(n, 2) * extent).astype(np.float32), rs.randn(n, 2)
+
+    def k1(name, pos, vel, k, angle, objects=None):
+        rows = pairwise.pack_rows(t(pos), head(vel))
+        cols = pairwise.pack_cols(t(pos if objects is None else objects))
+        thr = pairwise.cos_threshold(angle)
+        selfp = objects is None
+        got = pairwise.pairwise_topk_cuda(rows, cols, k, thr, selfp)
+        ref = pairwise.pairwise_topk_plain(rows, cols, k, thr, selfp)
+        torch.cuda.synchronize()
+        assert_equal(got[0], ref[0], f"K1 {name} dist")
+        assert_equal(got[1], ref[1], f"K1 {name} idx")
+        checks.append(dict(kernel="k1", case=name, n=rows.shape[0],
+                           m=cols.shape[1], k=k,
+                           slices=pairwise.column_slices(cols.shape[1])[0],
+                           finite=int(torch.isfinite(got[0]).sum())))
+
+    def k2(name, pos, vel, k, angle, **kw):
+        batched = np.ndim(pos) == 3
+        if batched:
+            sel = banded.topk_neighbors_banded_batched
+        else:
+            sel = banded.topk_neighbors_banded
+            kw["same_objects"] = kw.get("objects") is None
+        args, out = banded_args(sel, t(pos), head(vel), k, angle, **kw)
+        got = banded.banded_topk_cuda(*args)
+        ref = banded.banded_topk_plain(*args[:-1])
+        torch.cuda.synchronize()
+        assert_equal(got[0], ref[0], f"K2 {name} dist")
+        assert_equal(got[1], ref[1], f"K2 {name} idx")
+        exact = out[2].tolist()
+        checks.append(dict(kernel="k2", case=name,
+                           rows=list(args[2].shape[:-1]),
+                           m_band=args[3].shape[-1], k=args[6],
+                           grid_dim=args[5], window=args[4], exact=exact,
+                           in_box_pairs=k2_bound(args)["bound_pairs"]))
+        return exact
+
+    xs, ys = np.meshgrid(np.arange(64), np.arange(64))
+    grid = np.stack([xs.ravel(), ys.ravel()], 1)     # 4,096 agents, 1 m
+    east = np.tile([[1.0, 0.0]], (grid.shape[0], 1))
+    for k, angle in ((6, 90.0), (6, 180.0), (1, 90.0), (16, 180.0)):
+        k1(f"lattice k={k} {angle:g} deg", grid, east, k, angle)
+        k2(f"lattice k={k} {angle:g} deg", grid, east, k, angle)
+    base, _ = spread(700, 30.0)
+    dup, dvel = np.repeat(base, 3, axis=0), rs.randn(2100, 2)
+    for angle in (90.0, 180.0):
+        k1(f"duplicates {angle:g} deg", dup, dvel, 6, angle)
+        k2(f"duplicates {angle:g} deg", dup, dvel, 6, angle)
+    pos, vel = spread(1000, 40.0)                     # N % 32 = 8
+    pos[rs.rand(1000) < 0.2] = np.nan
+    obs, _ = spread(1500, 40.0)
+    obs[rs.rand(1500) < 0.2] = np.nan
+    k1("absent agents", pos, vel, 6, 90.0)
+    k1("absent obstacles", pos, vel, 10, 90.0, objects=obs)
+    k1("M=100 < one slice", pos, vel, 10, 90.0, objects=obs[:100])
+    k1("M=5, k=5", pos, vel, 5, 90.0, objects=obs[:5])
+    k2("absent agents", pos, vel, 6, 90.0, dist_threshold=4.0)
+    k2("absent obstacles", pos, vel, 10, 90.0, objects=t(obs))
+    k2("M=100", pos, vel, 10, 90.0, objects=t(obs[:100]))
+    p3 = np.stack([spread(1500, 50.0)[0] for _ in range(3)])
+    v3 = rs.randn(3, 1500, 2)
+    k2("C=3 per-channel tables", p3, v3, 6, 90.0, dist_threshold=4.0)
+    k2("C=3 shared table", p3, v3, 10, 90.0, objects=t(obs))
+    pos = (rs.rand(600, 2) * 0.5 + 100.0).astype(np.float32)
+    pos[:60] = rs.rand(60, 2) * 100.0
+    if k2("window overflow", pos, np.tile([[1.0, 0.0]], (600, 1)), 6, 90.0,
+          grid_dim=16, window=128):
+        raise AssertionError("K2 edge cases: the overflowed window was "
+                             "reported exact")
+    say("kernel_edge_cases", bitwise_equal=True, cases=checks)
+    return checks
+
+
+def k2_pass_kwargs(sc, ncfg):
+    """The rollout's two K2 passes at the dense-stress shape."""
+    from piml_tpu_torch.ops import banded
+
+    n = sc["pos"].shape[0]
+    g_p, w_p = banded.banded_params(n, n, ncfg.topk_ped, fine=True)
+    g_o, w_o = banded.banded_params(n, sc["obstacles"].shape[0],
+                                    ncfg.topk_obs, fine=True)
+    return {
+        "agents": dict(k=ncfg.topk_ped, angle_threshold=ncfg.sight_angle_ped,
+                       dist_threshold=ncfg.dist_threshold_ped, grid_dim=g_p,
+                       window=w_p),
+        "obstacles": dict(k=ncfg.topk_obs,
+                          angle_threshold=ncfg.sight_angle_obs,
+                          objects=sc["obstacles"], same_objects=False,
+                          dist_threshold=ncfg.dist_threshold_obs,
+                          grid_dim=g_o, window=w_o),
+    }
 
 
 def stress_scene(device):
@@ -423,7 +669,8 @@ def cli_pipeline(dev, tmp):
     configs = {}
     for name, file in (("pretrain", "gc_sf_repro.npy"),
                        ("finetune", "gc_mlapm_repro.npy")):
-        src = Scene.load(os.path.join(ROOT, "repro_work", file))
+        src = Scene.load(os.path.join(ROOT, "repro_work", file),
+                         device="cpu")
         lines = []
         for split, (a, b) in CLI_SPLITS.items():
             path = os.path.join(tmp, f"{name}_{split}.npy")
@@ -572,53 +819,31 @@ def main():
         "obstacles": (pairwise.pack_cols(sc["obstacles"]), ncfg.topk_obs,
                       thr_o, False),
     }
-    k1 = dict(ms=0.0, plain_ms=0.0, max_abs_err=0.0)
+    k1_passes, k1_err = {}, 0.0
     for name, (cols, k, thr, selfp) in passes.items():
         got = pairwise.pairwise_topk_cuda(rows, cols, k, thr, selfp)
         ref = pairwise.pairwise_topk_plain(rows, cols, k, thr, selfp)
         torch.cuda.synchronize()
         assert_equal(got[0], ref[0], f"K1 {name} dist")
         assert_equal(got[1], ref[1], f"K1 {name} idx")
-        ms = cuda_ms(lambda: pairwise.pairwise_topk_cuda(rows, cols, k, thr,
-                                                         selfp), 20)
-        plain_ms = cuda_ms(lambda: pairwise.pairwise_topk_plain(
+        ms = queued_ms(lambda: pairwise.pairwise_topk_cuda(
+            rows, cols, k, thr, selfp), 20)
+        plain_ms = queued_ms(lambda: pairwise.pairwise_topk_plain(
             rows, cols, k, thr, selfp), 5)
-        k1["ms"] += ms
-        k1["plain_ms"] += plain_ms
-        k1[f"ms_{name}"] = ms
-        k1[f"plain_ms_{name}"] = plain_ms
-        k1["max_abs_err"] = max(k1["max_abs_err"],
-                                max_abs_err(got[0], ref[0]))
+        k1_passes[name] = pass_record(ms, plain_ms,
+                                      k1_bound(rows, cols, k))
+        k1_err = max(k1_err, max_abs_err(got[0], ref[0]))
         say("k1", which=name, shape=[N_AGENTS, cols.shape[1]], k=k,
-            bitwise_equal=True, ms=ms, plain_ms=plain_ms)
-    record["k1"] = k1
+            slices=pairwise.column_slices(cols.shape[1])[0],
+            bitwise_equal=True, **k1_passes[name])
+    record["k1"] = kernel_record(k1_passes, k1_err)
 
     # ---- 3. K2 against its plain version -----------------------------------
-    k2 = dict(ms=0.0, plain_ms=0.0, max_abs_err=0.0)
-    g_p, w_p = banded.banded_params(N_AGENTS, N_AGENTS, ncfg.topk_ped,
-                                    fine=True)
-    g_o, w_o = banded.banded_params(N_AGENTS, N_OBSTACLES, ncfg.topk_obs,
-                                    fine=True)
-    k2_passes = {
-        "agents": dict(k=ncfg.topk_ped, angle_threshold=ncfg.sight_angle_ped,
-                       dist_threshold=ncfg.dist_threshold_ped, grid_dim=g_p,
-                       window=w_p),
-        "obstacles": dict(k=ncfg.topk_obs,
-                          angle_threshold=ncfg.sight_angle_obs,
-                          objects=sc["obstacles"], same_objects=False,
-                          dist_threshold=ncfg.dist_threshold_obs,
-                          grid_dim=g_o, window=w_o),
-    }
-    for name, kw in k2_passes.items():
-        captured = {}
-        real = banded.banded_topk
-
-        def capture(*args):
-            captured["args"] = args
-            return real(*args)
-
-        with mock.patch.object(banded, "banded_topk", capture):
-            got = banded.topk_neighbors_banded(sc["pos"], heading, **kw)
+    k2_passes, k2_err = {}, 0.0
+    k2_kwargs = k2_pass_kwargs(sc, ncfg)
+    for name, kw in k2_kwargs.items():
+        args, got = banded_args(banded.topk_neighbors_banded, sc["pos"],
+                                heading, **kw)
         with plain_route():
             ref = banded.topk_neighbors_banded(sc["pos"], heading, **kw)
         torch.cuda.synchronize()
@@ -638,22 +863,20 @@ def main():
                                      "differ from K1")
             assert_equal(got[0][in_thr], d1[in_thr], f"K2 vs K1 {name} dist")
             assert_equal(got[1][in_thr], i1[in_thr], f"K2 vs K1 {name} idx")
-        args = captured["args"]
         out_k, out_p = (banded.banded_topk_cuda(*args),
-                        banded.banded_topk_plain(*args))
+                        banded.banded_topk_plain(*args[:-1]))
         assert_equal(out_k[0], out_p[0], f"K2 {name} raw dist")
         assert_equal(out_k[1], out_p[1], f"K2 {name} raw idx")
-        ms = cuda_ms(lambda: banded.banded_topk_cuda(*args), 50)
-        plain_ms = cuda_ms(lambda: banded.banded_topk_plain(*args), 10)
-        k2["ms"] += ms
-        k2["plain_ms"] += plain_ms
-        k2[f"ms_{name}"] = ms
-        k2[f"plain_ms_{name}"] = plain_ms
-        k2["max_abs_err"] = max(k2["max_abs_err"],
-                                max_abs_err(out_k[0], out_p[0]))
+        ms = queued_ms(lambda: banded.banded_topk_cuda(*args), 50)
+        plain_ms = queued_ms(
+            lambda: banded.banded_topk_plain(*args[:-1]), 10)
+        k2_passes[name] = pass_record(ms, plain_ms, k2_bound(args))
+        k2_err = max(k2_err, max_abs_err(out_k[0], out_p[0]))
         say("k2", which=name, grid_dim=kw["grid_dim"], window=kw["window"],
-            exact=bool(got[2]), bitwise_equal=True, ms=ms, plain_ms=plain_ms)
-    record["k2"] = k2
+            exact=bool(got[2]), bitwise_equal=True, **k2_passes[name])
+
+    # ---- 3b. both kernels on edge cases ------------------------------------
+    kernel_edge_cases(dev)
 
     # ---- 4./5. the main path: dense-stress rollouts -------------------------
     cfg, model = trained_model(dev)
@@ -746,7 +969,8 @@ def main():
         model, cfg, [make_time_indexed(cfg, Scene.from_arrays(arrays, dev))],
         test_flag=True)
     m_cpu = evaluate_rollouts(
-        cpu_model, cfg, [make_time_indexed(cfg, Scene.from_arrays(arrays))],
+        cpu_model, cfg,
+        [make_time_indexed(cfg, Scene.from_arrays(arrays, device="cpu"))],
         test_flag=True)
     for key in ("mse", "mae", "ot", "mmd", "collision", "hard_collision"):
         a, b = getattr(m_gpu, key), getattr(m_cpu, key)
@@ -763,18 +987,11 @@ def main():
     head2 = heading_direction(
         torch.stack([sc["vel"], sc["vel"] + jitter[1].to(dev)]),
         time_axis=False)
-    for name, kw in k2_passes.items():
+    for name, kw in k2_kwargs.items():
         kw = dict(kw)
         kw.pop("same_objects", None)
-        captured = {}
-        real = banded.banded_topk
-
-        def capture(*args):
-            captured["args"] = args
-            return real(*args)
-
-        with mock.patch.object(banded, "banded_topk", capture):
-            got = banded.topk_neighbors_banded_batched(pos2, head2, **kw)
+        args, got = banded_args(banded.topk_neighbors_banded_batched, pos2,
+                                head2, **kw)
         with plain_route():
             ref = banded.topk_neighbors_banded_batched(pos2, head2, **kw)
         objects = kw.pop("objects", None)
@@ -787,14 +1004,16 @@ def main():
             for c in range(2):
                 assert_equal(got[j][c], singles[c][j],
                              f"batched K2 {name} {what} vs channel {c}")
-        args = captured["args"]
-        ms = cuda_ms(lambda: banded.banded_topk_cuda(*args), 50)
-        plain_ms = cuda_ms(lambda: banded.banded_topk_plain(*args), 10)
-        k2[f"ms_batched_{name}"] = ms
-        k2[f"plain_ms_batched_{name}"] = plain_ms
+        ms = queued_ms(lambda: banded.banded_topk_cuda(*args), 50)
+        plain_ms = queued_ms(
+            lambda: banded.banded_topk_plain(*args[:-1]), 10)
+        k2_passes[f"batched_{name}"] = pass_record(ms, plain_ms,
+                                                   k2_bound(args))
         say("k2_batched", which=name, channels=2,
             exact=got[2].tolist(), bitwise_equal_plain=True,
-            bitwise_equal_single_launches=True, ms=ms, plain_ms=plain_ms)
+            bitwise_equal_single_launches=True,
+            **k2_passes[f"batched_{name}"])
+    record["k2"] = kernel_record(k2_passes, k2_err)
 
     # ---- 9. the dense-N finetune step --------------------------------------
     from piml_tpu_torch.config import PIMLConfig
@@ -936,7 +1155,8 @@ def main():
         dict(name="pairwise_topk (K1)", route="cuda",
              source="piml_tpu_torch/csrc/pairwise_topk.cu",
              replaces="piml_tpu/ops/pairwise.py:91",
-             launches=launches["k1"], **record["k1"]),
+             launches=launches["k1"], launches_default_rollout=k1_default,
+             launches_k1_route=launches["k1"] - k1_default, **record["k1"]),
         dict(name="banded_topk (K2)", route="cuda",
              source="piml_tpu_torch/csrc/banded_topk.cu",
              replaces="piml_tpu/ops/banded.py:116",

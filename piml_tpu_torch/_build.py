@@ -40,13 +40,14 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 _SIGNATURES = {
-    # rows, n, cols, m, cos_thr, self_pairs, k, out_d, out_i, stream
-    "piml_pairwise_topk": (_P, _I, _P, _I, _F, _I, _I, _P, _P, _P),
+    # rows, n, cols, m, slices, cols_per_slice, cos_thr, self_pairs, k,
+    # out_d, out_i, stream
+    "piml_pairwise_topk": (_P, _I, _P, _I, _I, _I, _F, _I, _I, _P, _P, _P),
     # ws, geo, geo_cstride, rows, n_pad, channels, cols, m_band,
-    # cols_cstride, window, grid_dim, cos_thr, self_pairs, k, out_d, out_i,
-    # stream
-    "piml_banded_topk": (_P, _P, _I, _P, _I, _I, _P, _I, _I, _I, _I, _F, _I,
-                         _I, _P, _P, _P),
+    # cols_cstride, offsets, offsets_cstride, window, grid_dim, cos_thr,
+    # self_pairs, k, out_d, out_i, stream
+    "piml_banded_topk": (_P, _P, _I, _P, _I, _I, _P, _I, _I, _P, _I, _I, _I,
+                         _F, _I, _I, _P, _P, _P),
 }
 
 

@@ -6,6 +6,11 @@
 // math, so no multiply-add is contracted and sqrtf / division stay
 // correctly rounded.  That is what makes each kernel bitwise equal to its
 // plain version on the card.
+//
+// The result is fixed by the strict (d2, id) order, so it does not depend
+// on the order in which pairs are visited or partial lists are merged:
+// both kernels split a row's columns into slices, one warp each, and merge
+// the slices' register lists through shared memory at the end.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -16,6 +21,25 @@ namespace piml {
 // packed agent rows: [x, y, hx, hy, valid, self_id, 0, 0]
 constexpr int kRowStride = 8;
 constexpr int kMaxK = 16;
+constexpr int kWarp = 32;
+
+// Squared distance of a pair by direct differencing, and the heading
+// projection of its offset; the self pair is pinned to (0, 0).
+__device__ __forceinline__ float pair_d2(float dx, float dy, bool self_pair) {
+  return self_pair ? 0.0f : dx * dx + dy * dy;
+}
+
+__device__ __forceinline__ float pair_rel_h(float dx, float dy, float hx,
+                                            float hy, bool self_pair) {
+  return self_pair ? 0.0f : dx * hx + dy * hy;
+}
+
+// For a field of view of at most 180 degrees (cos_thr >= 0) a pair behind
+// the agent (rel_h < 0) fails the gate whatever its distance, so it is
+// decided without the sqrt.
+__device__ __forceinline__ bool behind(float rel_h, float cos_thr) {
+  return cos_thr >= 0.0f && rel_h < 0.0f;
+}
 
 // Running top-k of one query row, kept in registers: every index below is a
 // compile-time constant after unrolling, so nothing spills to local memory.
@@ -32,21 +56,92 @@ struct TopK {
     }
   }
 
-  // Strict lexicographic insertion on (d2, id); the candidate bubbles down
-  // the sorted list and the largest entry falls off the end.  Callers pass
-  // finite d2 only.
+  // Strict lexicographic insertion on (d2, id); the largest entry falls
+  // off the end.  The list is sorted, so the candidate ranks before every
+  // entry from its place on: each slot keeps its entry, takes its left
+  // neighbour's, or takes the candidate.  The K compares do not depend on
+  // each other, where bubbling the candidate down would chain them.
   __device__ __forceinline__ void push(float cd, int ci) {
-    if (!(cd < d[K - 1] || (cd == d[K - 1] && ci < i[K - 1]))) return;
+    if (!ranks(cd, ci)) return;
+    bool before[K];
 #pragma unroll
-    for (int t = 0; t < K; ++t) {
-      const bool less = cd < d[t] || (cd == d[t] && ci < i[t]);
-      if (less) {
-        const float td = d[t];
-        const int ti = i[t];
-        d[t] = cd;
-        i[t] = ci;
-        cd = td;
-        ci = ti;
+    for (int t = 0; t < K; ++t)
+      before[t] = cd < d[t] || (cd == d[t] && ci < i[t]);
+#pragma unroll
+    for (int t = K - 1; t > 0; --t) {
+      if (before[t]) {
+        d[t] = before[t - 1] ? d[t - 1] : cd;
+        i[t] = before[t - 1] ? i[t - 1] : ci;
+      }
+    }
+    if (before[0]) {
+      d[0] = cd;
+      i[0] = ci;
+    }
+  }
+
+  // Inserts a scored pair when it is in view.  The gate is multiplicative,
+  // as in the TPU kernel: out of view when
+  // rel_h < cos_thr * max(sqrt(d2), 1e-8).  The self pair is pinned to
+  // (d2, rel_h) = (0, 0), which the gate excludes for cos_thr > 0.
+  __device__ __forceinline__ void offer(float d2, float dx, float dy,
+                                        float hx, float hy, bool self_pair,
+                                        float cos_thr, int id) {
+    const float rel_h = pair_rel_h(dx, dy, hx, hy, self_pair);
+    if (behind(rel_h, cos_thr)) return;
+    if (rel_h < cos_thr * fmaxf(sqrtf(d2), 1e-8f)) return;
+    push(d2, id);
+  }
+
+  // Scores one pair and inserts it when it is in view and ranks.  A pair
+  // whose d2 exceeds the current k-th distance cannot enter the list, so
+  // it is rejected before the sqrt of the field-of-view gate; a tie takes
+  // the full path (its id decides).
+  __device__ __forceinline__ void score(float xa, float ya, float hx,
+                                        float hy, float xb, float yb,
+                                        bool self_pair, float cos_thr,
+                                        int id) {
+    const float dx = xb - xa;
+    const float dy = yb - ya;
+    const float d2 = pair_d2(dx, dy, self_pair);
+    if (d2 > d[K - 1]) return;
+    offer(d2, dx, dy, hx, hy, self_pair, cos_thr, id);
+  }
+
+  // Whether (cd, ci) would enter the list.
+  __device__ __forceinline__ bool ranks(float cd, int ci) const {
+    return cd < d[K - 1] || (cd == d[K - 1] && ci < i[K - 1]);
+  }
+
+  // Slice-parallel merge of a block of kWarp rows: warp `slice` of
+  // `slices` holds a partial list for row `lane`.  Warps 1.. publish their
+  // lists in `sd` / `si` ((slices - 1) * K * kWarp entries each), and warp
+  // 0 folds them into its own.  Every thread of the block must call it;
+  // its first barrier lets `sd` / `si` alias buffers the walks used.
+  __device__ __forceinline__ void merge(float* sd, int* si, int slice,
+                                        int slices, int lane) {
+    __syncthreads();
+    if (slice > 0) {
+#pragma unroll
+      for (int t = 0; t < K; ++t) {
+        const int at = ((slice - 1) * K + t) * kWarp + lane;
+        sd[at] = d[t];
+        si[at] = i[t];
+      }
+    }
+    __syncthreads();
+    if (slice == 0) {
+      for (int s = 0; s < slices - 1; ++s) {
+#pragma unroll
+        for (int t = 0; t < K; ++t) {
+          const int at = (s * K + t) * kWarp + lane;
+          const float cd = sd[at];
+          const int ci = si[at];
+          // a published list is sorted on (d2, id), so once one entry
+          // does not rank, none after it does (an empty slot never does)
+          if (!(cd < CUDART_INF_F) || !ranks(cd, ci)) break;
+          push(cd, ci);
+        }
       }
     }
   }
@@ -60,25 +155,6 @@ struct TopK {
     }
   }
 };
-
-// Squared distance of an in-view pair, +inf when the field-of-view gate
-// rejects it.  The gate is multiplicative, as in the TPU kernel:
-// out of view when rel_h < cos_thr * max(sqrt(d2), 1e-8).  The self pair is
-// pinned to (d2, rel_h) = (0, 0), which the gate excludes for cos_thr > 0.
-__device__ __forceinline__ float pair_d2(float xa, float ya, float hx, float hy,
-                                         float xb, float yb, bool self_pair,
-                                         float cos_thr) {
-  const float dx = xb - xa;
-  const float dy = yb - ya;
-  float d2 = dx * dx + dy * dy;
-  float rel_h = dx * hx + dy * hy;
-  if (self_pair) {
-    d2 = 0.0f;
-    rel_h = 0.0f;
-  }
-  const bool out_of_view = rel_h < cos_thr * fmaxf(sqrtf(d2), 1e-8f);
-  return out_of_view ? CUDART_INF_F : d2;
-}
 
 }  // namespace piml
 

@@ -40,7 +40,7 @@ from piml_tpu_torch.scene import Scene, mirror, random_walk_noise, rotate
 Device = Union[str, torch.device]
 
 
-def load_scenes(data_config_path: str, device: Device = "cpu"
+def load_scenes(data_config_path: str, device: Device = "cuda:0"
                 ) -> Dict[str, List[Scene]]:
     """Read the split → paths YAML and decode every scene onto ``device``
     (reference: dataset.py:45-53).  Relative paths are tried as given and
@@ -143,7 +143,7 @@ def _publish_dims(cfg: PIMLConfig, data: TimeIndexedData) -> PIMLConfig:
 class _Orchestrator:
     """Raw scenes of a data config, decoded onto ``device``."""
 
-    def __init__(self, polar: bool = False, device: Device = "cpu"):
+    def __init__(self, polar: bool = False, device: Device = "cuda:0"):
         if polar:
             raise NotImplementedError("the polar views are not ported yet")
         self.device = device
@@ -163,7 +163,7 @@ class _Orchestrator:
 class PointwiseDataset(_Orchestrator):
     """The pretrain path: pointwise train / valid, time-indexed test."""
 
-    def __init__(self, polar: bool = False, device: Device = "cpu"):
+    def __init__(self, polar: bool = False, device: Device = "cuda:0"):
         super().__init__(polar, device)
         self.train_data: Optional[PointwiseData] = None
         self.valid_data: Optional[PointwiseData] = None
@@ -193,7 +193,7 @@ class FinetuneDataset(_Orchestrator):
     """The finetune path: ``'slice'`` train windows, time-indexed valid and
     test scenes evaluated by rollout."""
 
-    def __init__(self, polar: bool = False, device: Device = "cpu"):
+    def __init__(self, polar: bool = False, device: Device = "cuda:0"):
         super().__init__(polar, device)
         self.train_data: List[ChanneledData] = []
         self.valid_data: List[TimeIndexedData] = []
@@ -226,7 +226,7 @@ class VisDataset(_Orchestrator):
     """Visualisation / collision-metric scenes, every split
     time-indexed."""
 
-    def __init__(self, device: Device = "cpu"):
+    def __init__(self, device: Device = "cuda:0"):
         super().__init__(False, device)
         self.dataset: Dict[str, List[TimeIndexedData]] = {}
 

@@ -4,8 +4,8 @@ Replaces the Pallas kernels ``piml_tpu/ops/banded.py:116`` (``_kernel``)
 and ``:128`` (``_kernel_dma``), which share ``_tile_compute``, with
 ``csrc/banded_topk.cu``.  The TPU split into a VMEM-resident and a DMA
 variant existed only for VMEM capacity; here the cell-sorted table lives
-in device memory and every tile reads its window through shared memory,
-so one kernel covers both.
+in device memory and every row reads only its box's columns of its
+tile's window, so one kernel covers both.
 
 Host side (plain tensor code, as in the JAX package):
 
@@ -14,8 +14,11 @@ Host side (plain tensor code, as in the JAX package):
 2. sort the agents by their own cell, so a tile of 128 consecutive rows is
    spatially coherent and its 5×5 cell boxes lie in ONE contiguous window
    of the sorted table, starting at ``ws[tile] · 128``;
-3. the kernel scores the window with K1's distance and FOV math plus the
-   5×5 box mask, keeping ties to the lowest ORIGINAL object id;
+3. the kernel scores, for each row, only the columns of its 5×5 cell
+   box that lie in its tile's window (:func:`box_ranges`: five column
+   ranges of the cell-sorted table, one per box column, read from the
+   table's cell offsets), with K1's distance and FOV math, keeping ties to
+   the lowest ORIGINAL object id;
 4. un-sort, then prove exactness: every row's k-th distance lies inside
    the unexamined-region bound (or the box covers the grid, or — with
    ``dist_threshold`` — the bound exceeds the threshold), and no tile's
@@ -33,8 +36,10 @@ without autograd (the JAX package's ``lax.stop_gradient`` at the kernel
 inputs), so gradients flow only through the neighbour states gathered
 afterwards.
 
-On the card the kernel is bound by its N · window pair arithmetic; the
-window (~1.8k columns for agents at N = 12,685) replaces K1's N columns.
+On the card the kernel's work is the in-box pairs (~66 a row for agents
+at N = 12,685, against a window of ~1.8k columns): a block holds 32 rows
+and five warps, one per box column, whose partial lists are merged at the
+end (``csrc/banded_topk.cu``).
 """
 
 from __future__ import annotations
@@ -52,7 +57,7 @@ from piml_tpu_torch.ops.pairwise import (MAX_K, cos_threshold, pack_rows,
 
 KERNEL = _build.KernelCount()
 LANE = 128      # window starts are in units of LANE columns
-TILE_N = 128    # agent rows per tile (one block on the card)
+TILE_N = 128    # agent rows per tile (one window start each)
 _BOUND_TOL = 1e-3
 
 
@@ -168,18 +173,58 @@ def banded_topk_plain(ws: torch.Tensor, geo: torch.Tensor, rows: torch.Tensor,
     return out_d, out_i
 
 
+@torch.no_grad()
+def box_ranges(ws: torch.Tensor, geo: torch.Tensor, rows: torch.Tensor,
+               offsets: torch.Tensor, window: int, grid_dim: int
+               ) -> torch.Tensor:
+    """The column ranges the kernel walks, as it computes them: for each
+    row and each cell column ``cx − 2 … cx + 2`` of its 5×5 box, the
+    ``[start, end)`` of the sorted table's columns in that column's box
+    cells (two entries of the table's cell ``offsets``), clipped to the
+    row's tile window ``[ws·LANE, ws·LANE + window)``; ``(0, 0)`` for an
+    invalid row or a cell column off the grid.  ``(…, n_pad, 5, 2)``
+    int32, on the kernel's layouts with or without a channel axis.
+
+    The table is sorted by cell id ``cx·G + cy`` with invalid and padding
+    columns last, so the five ranges hold exactly the columns that
+    :func:`banded_topk_plain` admits (window ∩ box ∩ valid), overflowed
+    windows included.  Also the count of in-box pairs behind the kernel's
+    bound."""
+    g = grid_dim
+    ax = cell_coords(rows[..., 0], geo[..., 0:1], geo[..., 2:3], g).long()
+    ay = cell_coords(rows[..., 1], geo[..., 1:2], geo[..., 3:4], g).long()
+    cx = ax[..., None] + torch.arange(-2, 3, device=rows.device)  # …, n, 5
+    y0 = torch.clamp_min(ay - 2, 0)[..., None]
+    y1 = torch.clamp_max(ay + 2, g - 1)[..., None]
+    live = (cx >= 0) & (cx < g) & ~(rows[..., 4:5] < 0.5)
+    cells = torch.stack([cx * g + y0, cx * g + y1 + 1], dim=-1)  # …, n, 5, 2
+    cells = torch.where(live[..., None], cells, 0)
+    if offsets.ndim == 1:           # one table (shared by the channels)
+        ends = offsets[cells]
+    else:                           # a table per channel
+        ends = torch.gather(offsets, 1, cells.flatten(1)).view(cells.shape)
+    start = (ws.long() * LANE).repeat_interleave(TILE_N, dim=-1)[..., None]
+    end = start + window
+    lo = torch.minimum(torch.maximum(ends[..., 0], start), end)
+    hi = torch.minimum(torch.maximum(ends[..., 1], lo), end)
+    return torch.where(live[..., None], torch.stack([lo, hi], dim=-1),
+                       0).int()
+
+
 def banded_topk_cuda(ws: torch.Tensor, geo: torch.Tensor, rows: torch.Tensor,
                      cols: torch.Tensor, window: int, grid_dim: int, k: int,
-                     cos_thr: float, self_pairs: bool
+                     cos_thr: float, self_pairs: bool, offsets: torch.Tensor
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Launch ``csrc/banded_topk.cu`` on PyTorch's current stream.
 
     Single frame: ``rows (n_pad, 8)``, ``ws (T,)``, ``geo (4,)``,
-    ``cols (6, m_band)`` → ``(n_pad, k)`` outputs.  Channel-batched:
-    ``rows (C, n_pad, 8)``, ``ws (C, T)``, ``geo (C, 4)`` or shared
-    ``(4,)``, ``cols (C, 6, m_band)`` or shared ``(6, m_band)`` →
-    ``(C, n_pad, k)``; one launch with C blocks along its second grid
-    axis."""
+    ``cols (6, m_band)``, ``offsets (G·G + 2,)`` → ``(n_pad, k)`` outputs.
+    Channel-batched: ``rows (C, n_pad, 8)``, ``ws (C, T)``, ``geo (C, 4)``
+    or shared ``(4,)``, ``cols (C, 6, m_band)`` and ``offsets
+    (C, G·G + 2)``, or both shared → ``(C, n_pad, k)``; one launch with C
+    blocks along its second grid axis.  ``offsets`` are the table's
+    per-cell starts (:class:`ObjectIndex`); the kernel walks the
+    :func:`box_ranges` they give."""
     batched = rows.ndim == 3
     chans = rows.shape[0] if batched else 1
     lead = rows.shape[:-2]
@@ -187,7 +232,8 @@ def banded_topk_cuda(ws: torch.Tensor, geo: torch.Tensor, rows: torch.Tensor,
     mb = cols.shape[-1]
     for name, t, dt in (("ws", ws, torch.int32), ("geo", geo, torch.float32),
                         ("rows", rows, torch.float32),
-                        ("cols", cols, torch.float32)):
+                        ("cols", cols, torch.float32),
+                        ("offsets", offsets, torch.int64)):
         if t.dtype != dt:
             raise TypeError(f"banded_topk: {name} must be {dt}")
         if not t.is_contiguous():
@@ -198,8 +244,10 @@ def banded_topk_cuda(ws: torch.Tensor, geo: torch.Tensor, rows: torch.Tensor,
     geo_ok = geo.shape == (4,) or (batched and geo.shape == (chans, 4))
     cols_ok = cols.shape[-2:] == (6, mb) and (
         cols.ndim == 2 or (batched and cols.shape[0] == chans))
+    offsets_ok = offsets.shape == cols.shape[:-2] + (
+        grid_dim * grid_dim + 2,)
     if (n_pad % TILE_N or rows.shape[-1] != 8 or rows.ndim not in (2, 3)
-            or not geo_ok or not cols_ok
+            or not geo_ok or not cols_ok or not offsets_ok
             or ws.shape != lead + (n_pad // TILE_N,)):
         raise ValueError("banded_topk: bad shapes")
     if window <= 0 or mb < window + LANE:
@@ -219,8 +267,9 @@ def banded_topk_cuda(ws: torch.Tensor, geo: torch.Tensor, rows: torch.Tensor,
     status = lib.piml_banded_topk(
         ws.data_ptr(), geo.data_ptr(), 4 if geo.ndim == 2 else 0,
         rows.data_ptr(), n_pad, chans, cols.data_ptr(), mb,
-        6 * mb if cols.ndim == 3 else 0, window, grid_dim, cos_thr,
-        int(self_pairs), k, out_d.data_ptr(), out_i.data_ptr(),
+        6 * mb if cols.ndim == 3 else 0, offsets.data_ptr(),
+        offsets.shape[-1] if offsets.ndim == 2 else 0, window, grid_dim,
+        cos_thr, int(self_pairs), k, out_d.data_ptr(), out_i.data_ptr(),
         _build.stream_handle(rows.device))
     _build.check(status, "piml_banded_topk")
     KERNEL.launches += 1
@@ -228,12 +277,15 @@ def banded_topk_cuda(ws: torch.Tensor, geo: torch.Tensor, rows: torch.Tensor,
 
 
 def banded_topk(ws, geo, rows, cols, window, grid_dim, k, cos_thr,
-                self_pairs):
+                self_pairs, offsets):
     """K2 on packed inputs, with or without a leading channel axis: the
-    plain version for a CPU tensor, the kernel for a CUDA tensor (which
-    raises rather than fall back)."""
-    fn = banded_topk_plain if rows.device.type == "cpu" else banded_topk_cuda
-    return fn(ws, geo, rows, cols, window, grid_dim, k, cos_thr, self_pairs)
+    plain version for a CPU tensor (which needs no ``offsets``), the
+    kernel for a CUDA tensor (which raises rather than fall back)."""
+    if rows.device.type == "cpu":
+        return banded_topk_plain(ws, geo, rows, cols, window, grid_dim, k,
+                                 cos_thr, self_pairs)
+    return banded_topk_cuda(ws, geo, rows, cols, window, grid_dim, k,
+                            cos_thr, self_pairs, offsets)
 
 
 class _Sorted(NamedTuple):
@@ -339,13 +391,15 @@ def _banded(position, heading, k_eff: int, angle_threshold: float,
 
     if shared:
         geo, cols = geo_of(indexes[0]).contiguous(), indexes[0].cols
+        offsets = indexes[0].offsets
     else:
         geo = torch.stack([geo_of(ix) for ix in indexes])
         cols = torch.stack([ix.cols for ix in indexes])
+        offsets = torch.stack([ix.offsets for ix in indexes])
     out_d, out_i = banded_topk(
         torch.stack([s_.ws for s_ in srts]), geo,
         torch.stack([s_.rows for s_ in srts]), cols, window, g, k_eff,
-        cos_threshold(angle_threshold), same_objects)
+        cos_threshold(angle_threshold), same_objects, offsets)
     n = position.shape[1]
     top_d = torch.stack([out_d[c, :n][s_.inv] for c, s_ in enumerate(srts)])
     top_i = torch.stack([out_i[c, :n][s_.inv] for c, s_ in enumerate(srts)])

@@ -11,9 +11,11 @@ semantics are the reference's FOV selection (src/data/data.py:416-447):
 - the k smallest ``(d2, id)`` in lexicographic order, returned as
   ``(√d2, id)``; an empty (+inf) slot gets id 0.
 
-On the card the kernel is bound by its N·M pair arithmetic (one thread per
-query row, the object table streamed through shared memory); device memory
-traffic is O(N·M / 64).  A CPU tensor takes the plain version below; a
+On the card the kernel is bound by its N·M pair arithmetic: a block holds
+32 query rows, one per lane, and splits the columns among a few warps
+(:func:`column_slices`), each staging its columns through shared memory and
+rejecting a pair before the sqrt when it cannot rank; the warps' partial
+lists are merged at the end.  A CPU tensor takes the plain version below; a
 CUDA tensor launches the kernel, or raises.  Selection carries no
 gradient: the wrapper detaches its inputs, as the JAX package's
 ``lax.stop_gradient`` at the kernel inputs does.
@@ -31,6 +33,9 @@ from piml_tpu_torch import _build
 
 KERNEL = _build.KernelCount()
 MAX_K = 16
+MAX_SLICES = 8        # warps a block of the kernel can hold (kMaxSlices)
+SLICES = 4            # column slices of a launch over a wide table
+MIN_SLICE_COLS = 512  # columns a slice walks at the least
 
 
 def cos_threshold(angle_threshold: float) -> float:
@@ -107,10 +112,26 @@ def pairwise_topk_plain(rows: torch.Tensor, cols: torch.Tensor, k: int,
     return out_d, out_i
 
 
+def column_slices(m: int) -> Tuple[int, int]:
+    """``(slices, cols_per_slice)`` of a launch over ``m`` columns:
+    ``SLICES`` warps a block, fewer when a slice would walk under
+    ``MIN_SLICE_COLS`` columns; slice ``s`` takes columns
+    ``[s·cols_per_slice, min(m, (s + 1)·cols_per_slice))``, so the slices
+    cover each column once.  Every slice fills a list of its own before
+    its k-th distance rejects pairs, so more slices buy occupancy with
+    repeated fills.  On an NVIDIA H100 at the dense-stress shape
+    (N = 12,685, ~12 warps on each SM at 4 slices) 4 slices were the
+    fastest of 1, 2, 4, 6 and 8 over M = 4,096 columns and within 1 % of
+    the fastest (6) over M = 12,685 (``tools/time_topk_kernels.py``)."""
+    slices = max(1, min(SLICES, m // MIN_SLICE_COLS))
+    return slices, -(-m // slices)
+
+
 def pairwise_topk_cuda(rows: torch.Tensor, cols: torch.Tensor, k: int,
                        cos_thr: float, self_pairs: bool
                        ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Launch ``csrc/pairwise_topk.cu`` on PyTorch's current stream."""
+    """Launch ``csrc/pairwise_topk.cu`` on PyTorch's current stream: blocks
+    of 32 rows, their columns split into :func:`column_slices`."""
     n, m = rows.shape[0], cols.shape[1]
     if rows.dtype != torch.float32 or cols.dtype != torch.float32:
         raise TypeError("pairwise_topk: rows and cols must be float32")
@@ -130,8 +151,9 @@ def pairwise_topk_cuda(rows: torch.Tensor, cols: torch.Tensor, k: int,
     out_d = torch.empty((n, k), dtype=torch.float32, device=rows.device)
     out_i = torch.empty((n, k), dtype=torch.int32, device=rows.device)
     status = lib.piml_pairwise_topk(
-        rows.data_ptr(), n, cols.data_ptr(), m, cos_thr, int(self_pairs), k,
-        out_d.data_ptr(), out_i.data_ptr(), _build.stream_handle(rows.device))
+        rows.data_ptr(), n, cols.data_ptr(), m, *column_slices(m), cos_thr,
+        int(self_pairs), k, out_d.data_ptr(), out_i.data_ptr(),
+        _build.stream_handle(rows.device))
     _build.check(status, "piml_pairwise_topk")
     KERNEL.launches += 1
     return out_d, out_i

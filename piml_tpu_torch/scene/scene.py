@@ -57,13 +57,13 @@ class Scene:
 
     @classmethod
     def load(cls, path: str,
-             device: Union[str, torch.device] = "cpu") -> "Scene":
+             device: Union[str, torch.device] = "cuda:0") -> "Scene":
         """Load a v2.2 ``.npy`` scene file onto ``device``."""
         return cls.from_arrays(codec.decode(path), device=device)
 
     @classmethod
     def from_arrays(cls, d: Dict[str, Any],
-                    device: Union[str, torch.device] = "cpu") -> "Scene":
+                    device: Union[str, torch.device] = "cuda:0") -> "Scene":
         def f32(x):
             return torch.as_tensor(np.asarray(x, np.float32), device=device)
 

@@ -69,7 +69,7 @@ def gc_slice():
     def apply_fn(pr, pf, of, sf):
         return jmodel.apply(pr, pf, of, sf)
 
-    tdata = make_time_indexed(tcfg, Scene.from_arrays(arrays))
+    tdata = make_time_indexed(tcfg, Scene.from_arrays(arrays, device="cpu"))
     model = build_model(ModelSpec.from_config(tcfg))
     model.load_state_dict(load_fixture())
     model.eval()
@@ -79,7 +79,7 @@ def gc_slice():
 
 def test_scene_load_matches_jax():
     ref = JaxScene.load(SCENE)
-    got = Scene.load(SCENE)
+    got = Scene.load(SCENE, device="cpu")
     for key in T_KEYED + ("waypoints", "dest_num", "obstacles"):
         np.testing.assert_allclose(getattr(got, key).numpy(),
                                    np.asarray(getattr(ref, key)),
@@ -178,6 +178,30 @@ def test_port_imports_no_jax():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.startswith("ok")
+
+
+@pytest.mark.parametrize("entry", [
+    "Scene.load", "Scene.from_arrays", "load_scenes", "_Orchestrator",
+    "PointwiseDataset", "FinetuneDataset", "VisDataset", "exp.run",
+    "exp.collision_eval"])
+def test_entry_points_default_to_the_card(entry):
+    """Every entry point that places data runs on the card unless the
+    caller asks for the CPU: its ``device`` parameter defaults to CUDA."""
+    import inspect
+
+    from piml_tpu_torch.data import datasets
+    from piml_tpu_torch.exp import main as exp_main
+
+    fn = {"Scene.load": Scene.load, "Scene.from_arrays": Scene.from_arrays,
+          "load_scenes": datasets.load_scenes,
+          "_Orchestrator": datasets._Orchestrator,
+          "PointwiseDataset": datasets.PointwiseDataset,
+          "FinetuneDataset": datasets.FinetuneDataset,
+          "VisDataset": datasets.VisDataset,
+          "exp.run": exp_main.run,
+          "exp.collision_eval": exp_main.collision_eval}[entry]
+    default = inspect.signature(fn).parameters["device"].default
+    assert torch.device(default).type == "cuda"
 
 
 @pytest.mark.parametrize("lagged,retire,track", [(True, True, False),

@@ -14,6 +14,8 @@ tolerances:
   an arbitrary id there, so those indices are not compared.
 """
 
+import os
+
 import numpy as np
 import jax.numpy as jnp
 import pytest
@@ -24,6 +26,7 @@ from piml_tpu.ops.grid_pairs import build_cell_index as jax_cell_index
 from piml_tpu.ops.pairwise import topk_neighbors_pallas as jax_dense
 from piml_tpu.physics.features import heading_direction as jax_heading
 from piml_tpu_torch.ops import banded, grid_pairs, pairwise
+from piml_tpu_torch.scene import codec
 
 
 def _t(x):
@@ -252,16 +255,175 @@ def test_k2_wrapper_refuses_bad_inputs_before_any_launch():
     cols = torch.zeros((6, 512))
     geo = torch.ones(4)
     ws = torch.zeros(1, dtype=torch.int32)
+    off = torch.zeros(18, dtype=torch.int64)
     with pytest.raises(ValueError):   # window runs past the table
-        banded.banded_topk_cuda(ws, geo, rows, cols, 512, 4, 6, 0.1, True)
+        banded.banded_topk_cuda(ws, geo, rows, cols, 512, 4, 6, 0.1, True,
+                                off)
     with pytest.raises(ValueError):   # rows not a whole number of tiles
         banded.banded_topk_cuda(ws, geo, rows[:100].contiguous(), cols, 128,
-                                4, 6, 0.1, True)
+                                4, 6, 0.1, True, off)
     with pytest.raises(TypeError):
         banded.banded_topk_cuda(ws.long(), geo, rows, cols, 128, 4, 6, 0.1,
-                                True)
+                                True, off)
+    with pytest.raises(TypeError):    # cell offsets must be int64
+        banded.banded_topk_cuda(ws, geo, rows, cols, 128, 4, 6, 0.1, True,
+                                off.int())
+    with pytest.raises(ValueError):   # offsets of another grid
+        banded.banded_topk_cuda(ws, geo, rows, cols, 128, 5, 6, 0.1, True,
+                                off)
     with pytest.raises(ValueError, match="CUDA"):   # well-formed, on the CPU
-        banded.banded_topk_cuda(ws, geo, rows, cols, 128, 4, 6, 0.1, True)
+        banded.banded_topk_cuda(ws, geo, rows, cols, 128, 4, 6, 0.1, True,
+                                off)
+
+
+# ---------------------------------------------------------------------------
+# the kernels' host-side launch arguments: K2's box ranges, K1's slices
+# ---------------------------------------------------------------------------
+
+GC_SCENE = os.path.join(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))), "repro_work", "gc_sf_repro.npy")
+
+
+def _launch_args(monkeypatch, selector, *args, **kw):
+    """The packed arguments a selector hands to ``banded_topk``."""
+    seen = []
+    real = banded.banded_topk
+
+    def capture(*a):
+        seen.append(a)
+        return real(*a)
+
+    monkeypatch.setattr(banded, "banded_topk", capture)
+    selector(*args, **kw)
+    monkeypatch.setattr(banded, "banded_topk", real)
+    ws, geo, rows, cols, window, g = seen[0][:6]
+    return ws, geo, rows, cols, window, g, seen[0][9]
+
+
+def _plain_admitted(ws, geo, rows, cols, window, g):
+    """``banded_topk_plain``'s mask (valid row, valid column, window, 5×5
+    box) spread over the whole table: ``(…, n_pad, m_band)`` booleans."""
+    if rows.ndim == 3:
+        return torch.stack([
+            _plain_admitted(ws[c], geo[c] if geo.ndim == 2 else geo, rows[c],
+                            cols[c] if cols.ndim == 3 else cols, window, g)
+            for c in range(rows.shape[0])])
+    n_pad, mb = rows.shape[0], cols.shape[1]
+    tiles = n_pad // banded.TILE_N
+    col_idx = ws.long()[:, None] * banded.LANE + torch.arange(window)
+    blk = cols[:, col_idx][:, :, None, :]                  # 6, T, 1, W
+    r = rows.view(tiles, banded.TILE_N, 8)
+    ax = grid_pairs.cell_coords(r[..., 0:1], geo[0], geo[2], g)
+    ay = grid_pairs.cell_coords(r[..., 1:2], geo[1], geo[3], g)
+    adm = (~(r[..., 4:5] < 0.5) & ~(blk[2] < 0.5)
+           & (torch.abs(blk[4] - ax) <= 2.0) & (torch.abs(blk[5] - ay) <= 2.0))
+    full = torch.zeros((tiles, banded.TILE_N, mb), dtype=torch.bool)
+    full.scatter_(2, col_idx[:, None, :].expand(adm.shape), adm)
+    return full.view(n_pad, mb)
+
+
+def _gc_frame(frame=100):
+    d = codec.decode(GC_SCENE)
+    pos = np.asarray(d["position"][frame], np.float32)
+    vel = np.nan_to_num(np.asarray(d["velocity"][frame], np.float32))
+    return pos, _heading(vel), np.asarray(d["obstacles"], np.float32)
+
+
+def _range_case(name, rng, monkeypatch):
+    sel = banded.topk_neighbors_banded
+    if name == "stress_agents":
+        pos, h = _spread(rng, 1500, 60.0)
+        return _launch_args(monkeypatch, sel, _t(pos), _t(h), 6, 90.0,
+                            dist_threshold=4.0)
+    if name == "stress_obstacles":
+        pos, h = _spread(rng, 1500, 60.0)
+        obs = (rng.rand(1000, 2) * 60.0).astype(np.float32)
+        return _launch_args(monkeypatch, sel, _t(pos), _t(h), 10, 90.0,
+                            objects=_t(obs), same_objects=False,
+                            dist_threshold=4.0)
+    if name in ("gc_agents", "gc_obstacles"):
+        pos, h, obs = _gc_frame()
+        kw = dict(objects=_t(obs), same_objects=False, dist_threshold=4.0) \
+            if name == "gc_obstacles" else dict(dist_threshold=4.0)
+        return _launch_args(monkeypatch, sel, _t(pos), _t(h), 6, 90.0, **kw)
+    if name == "window_overflow":
+        pos, h, kw = _window_overflow(rng)
+        return _launch_args(monkeypatch, sel, _t(pos), _t(h), 6, 90.0, **kw)
+    if name == "edge_cells":
+        pos, h, kw = _runaways(rng)
+        return _launch_args(monkeypatch, sel, _t(pos), _t(h), 6, 90.0, **kw)
+    if name == "absent_padded":
+        pos, h = _spread(rng, 1500, 60.0)
+        pos[rng.rand(1500) < 0.25] = np.nan
+        obs = (rng.rand(700, 2) * 60.0).astype(np.float32)
+        obs[rng.rand(700) < 0.3] = np.nan
+        return _launch_args(monkeypatch, sel, _t(pos), _t(h), 10, 90.0,
+                            objects=_t(obs), same_objects=False)
+    if name in ("batched_agents", "batched_obstacles"):
+        pos, h = _two_channels(rng, n=700, extent=40.0)
+        obs = _t((rng.rand(900, 2) * 40.0).astype(np.float32)) \
+            if name == "batched_obstacles" else None
+        return _launch_args(monkeypatch, banded.topk_neighbors_banded_batched,
+                            _t(pos), _t(h), 6, 90.0, objects=obs,
+                            dist_threshold=4.0)
+    raise ValueError(name)
+
+
+@pytest.mark.parametrize("case", [
+    "stress_agents", "stress_obstacles", "gc_agents", "gc_obstacles",
+    "window_overflow", "edge_cells", "absent_padded", "batched_agents",
+    "batched_obstacles"])
+def test_box_ranges_cover_exactly_the_plain_window_box_mask(
+        rng, monkeypatch, case):
+    """K2's per-row column ranges hold exactly the columns the plain
+    version admits (window ∩ 5×5 box ∩ valid, valid rows), each once: on
+    random and GC scenes, an overflowed window, boxes clipped at the grid's
+    edges, absent agents and obstacles, padded rows and two channels."""
+    ws, geo, rows, cols, window, g, offsets = _range_case(case, rng,
+                                                          monkeypatch)
+    ranges = banded.box_ranges(ws, geo, rows, offsets, window, g)
+    assert ranges.dtype == torch.int32
+    assert ranges.shape == rows.shape[:-1] + (5, 2)
+    lo, hi = ranges[..., 0].long(), ranges[..., 1].long()
+    assert (hi >= lo).all() and (lo >= 0).all()
+    assert (hi <= cols.shape[-1]).all()
+    j = torch.arange(cols.shape[-1])
+    inside = ((j >= lo[..., None]) & (j < hi[..., None]))   # …, n, 5, mb
+    assert int(inside.sum()) == int((hi - lo).sum())
+    got = inside.sum(dim=-2)
+    assert int(got.max()) <= 1, "a column lies in two ranges of one row"
+    want = _plain_admitted(ws, geo, rows, cols, window, g)
+    assert want.any()
+    assert torch.equal(got.bool(), want)
+    if case == "edge_cells":
+        ax = grid_pairs.cell_coords(rows[..., 0], geo[0], geo[2], g)
+        valid = rows[..., 4] > 0.5
+        assert ((ax[valid] <= 1) | (ax[valid] >= g - 2)).any()
+        empty_cols = (lo == hi)[valid]
+        assert empty_cols.any()
+    if case == "window_overflow":   # the clipping dropped box columns
+        whole = banded.box_ranges(torch.zeros_like(ws), geo, rows, offsets,
+                                  cols.shape[-1], g)
+        assert int((whole[..., 1] - whole[..., 0]).sum()) > int(
+            (hi - lo).sum())
+
+
+@pytest.mark.parametrize("m", [1, 7, 255, 256, 700, 4096, 12685, 100003])
+def test_column_slices_cover_each_column_once(m):
+    """K1's slice split: at most ``SLICES`` slices (one warp each, within
+    the kernel's 8), none under ``MIN_SLICE_COLS`` columns unless there is
+    one, and the slices ``[s·per, min(m, (s + 1)·per))`` cover each column
+    exactly once."""
+    slices, per = pairwise.column_slices(m)
+    assert 1 <= slices <= pairwise.SLICES <= pairwise.MAX_SLICES
+    assert per >= 1 and slices * per >= m
+    assert slices == 1 or per >= pairwise.MIN_SLICE_COLS
+    hits = np.zeros(m, np.int64)
+    for s in range(slices):
+        hits[s * per:min(m, (s + 1) * per)] += 1
+    np.testing.assert_array_equal(hits, 1)
+    if m >= pairwise.SLICES * pairwise.MIN_SLICE_COLS:
+        assert slices == pairwise.SLICES
 
 
 # ---------------------------------------------------------------------------
@@ -353,20 +515,26 @@ def test_k2_batched_wrapper_refuses_bad_inputs_before_any_launch():
     cols = torch.zeros((2, 6, 512))
     geo = torch.ones(2, 4)
     ws = torch.zeros((2, 1), dtype=torch.int32)
+    off = torch.zeros((2, 18), dtype=torch.int64)
     with pytest.raises(ValueError):   # per-channel table for 3 channels
         banded.banded_topk_cuda(ws, geo, rows, torch.zeros((3, 6, 512)), 128,
-                                4, 6, 0.1, True)
+                                4, 6, 0.1, True, torch.zeros((3, 18),
+                                                             dtype=torch.int64))
     with pytest.raises(ValueError):   # window starts for one channel
         banded.banded_topk_cuda(ws[:1], geo, rows, cols, 128, 4, 6, 0.1,
-                                True)
+                                True, off)
     with pytest.raises(ValueError):   # per-channel geometry, single frame
         banded.banded_topk_cuda(ws[0], geo, rows[0], cols[0], 128, 4, 6, 0.1,
-                                True)
+                                True, off[0])
+    with pytest.raises(ValueError):   # shared table, per-channel offsets
+        banded.banded_topk_cuda(ws, geo[0], rows, cols[0], 128, 4, 6, 0.1,
+                                True, off)
     with pytest.raises(ValueError, match="CUDA"):   # well-formed, shared
         banded.banded_topk_cuda(ws, geo[0], rows, cols[0], 128, 4, 6, 0.1,
-                                True)
+                                True, off[0])
     with pytest.raises(ValueError, match="CUDA"):   # well-formed, per channel
-        banded.banded_topk_cuda(ws, geo, rows, cols, 128, 4, 6, 0.1, True)
+        banded.banded_topk_cuda(ws, geo, rows, cols, 128, 4, 6, 0.1, True,
+                                off)
 
 
 # ---------------------------------------------------------------------------

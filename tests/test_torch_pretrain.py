@@ -102,7 +102,7 @@ def tiny(tmp_path_factory):
     """Cropped scenes on disk, a data config over them, and both
     packages' time-indexed views of the training scene."""
     base = tmp_path_factory.mktemp("tiny")
-    src = Scene.load(SOURCE)
+    src = Scene.load(SOURCE, device="cpu")
     paths = {}
     for split, (a, b) in dict(train=(0, 80), valid=(80, 120),
                               test=(120, 160)).items():
@@ -148,7 +148,8 @@ def test_rotate_and_mirror_match_jax(tiny, fn):
     path = tiny["paths"]["train"]
     ref = {"rotate": jax_rotate, "mirror": jax_mirror}[fn](
         JaxScene.load(path), 37.0)
-    got = {"rotate": rotate, "mirror": mirror}[fn](Scene.load(path), 37.0)
+    got = {"rotate": rotate, "mirror": mirror}[fn](
+        Scene.load(path, device="cpu"), 37.0)
     for key in SCENE_FIELDS:
         np.testing.assert_allclose(getattr(got, key).numpy(),
                                    np.asarray(getattr(ref, key)),
@@ -159,11 +160,11 @@ def test_scene_save_round_trip(tiny, tmp_path):
     """The port's writer gives the file the JAX package reads, and writing
     a loaded scene again changes nothing."""
     path = tiny["paths"]["train"]
-    got, ref = Scene.load(path), JaxScene.load(path)
+    got, ref = Scene.load(path, device="cpu"), JaxScene.load(path)
     assert got.num_pedestrians == len(AGENTS) and got.num_steps == 80
     again = str(tmp_path / "again.npy")
     got.save(again)
-    back = Scene.load(again)
+    back = Scene.load(again, device="cpu")
     for key in SCENE_FIELDS:
         np.testing.assert_allclose(getattr(got, key).numpy(),
                                    np.asarray(getattr(ref, key)),
@@ -171,7 +172,7 @@ def test_scene_save_round_trip(tiny, tmp_path):
         assert torch.equal(torch.nan_to_num(getattr(back, key), 7.0),
                            torch.nan_to_num(getattr(got, key), 7.0)), key
     # the crop keeps the source's positions on its frames and agents
-    src = Scene.load(SOURCE)
+    src = Scene.load(SOURCE, device="cpu")
     live = got.mask_p == 1
     assert torch.equal(got.position[live],
                        src.position[:80, :len(AGENTS)][live])
@@ -240,7 +241,7 @@ def test_pointwise_dataset_matches_jax(tiny):
     jds = JaxPointwiseDataset()
     jds.load_data(tiny["config"])
     jcfg = jds.build_dataset(JaxConfig(**CFG))
-    ds = PointwiseDataset()
+    ds = PointwiseDataset(device="cpu")
     ds.load_data(tiny["config"])
     cfg = ds.build_dataset(PIMLConfig(**CFG))
     assert (cfg.ped_feature_dim, cfg.obs_feature_dim, cfg.self_feature_dim,
@@ -260,7 +261,7 @@ def test_pointwise_dataset_matches_jax(tiny):
 def test_finetune_dataset_matches_jax(tiny, tmp_path):
     """Two training scenes of different agent counts: the port pads them
     to one slot count with inert agents, as the JAX package does."""
-    src = Scene.load(SOURCE)
+    src = Scene.load(SOURCE, device="cpu")
     small = str(tmp_path / "small.npy")
     crop(src, 0, 60, AGENTS[:25]).save(small)
     config = tmp_path / "ft.yaml"
@@ -270,7 +271,7 @@ def test_finetune_dataset_matches_jax(tiny, tmp_path):
     jds = JaxFinetuneDataset()
     jds.load_data(str(config))
     jds.build_dataset(JaxConfig(**CFG))
-    ds = FinetuneDataset()
+    ds = FinetuneDataset(device="cpu")
     ds.load_data(str(config))
     ds.build_dataset(PIMLConfig(**CFG))
     assert len(ds.train_data) == len(jds.train_data) == 2

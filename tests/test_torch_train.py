@@ -104,7 +104,8 @@ def gc_windows():
     arrays = _arrays(0, FRAMES)
     jcfg = JaxConfig(**CFG)
     jdata = jax_make_time_indexed(jcfg, JaxScene.from_arrays(arrays))
-    tdata = make_time_indexed(PIMLConfig(**CFG), Scene.from_arrays(arrays))
+    tdata = make_time_indexed(PIMLConfig(**CFG),
+                              Scene.from_arrays(arrays, device="cpu"))
     with open(PRE_MSGPACK, "rb") as f:
         params = msgpack_restore(f.read())
     return dict(jcfg=jcfg, jdata=jdata, tdata=tdata, params=params)
@@ -390,7 +391,8 @@ def test_trainer_finetune_two_epochs_on_cpu(gc_windows, tmp_path):
         list(range(26, 34)))
     batches = channel_batches([ch], 4, np.random.RandomState(cfg.seed),
                               shuffle=True)
-    valid = make_time_indexed(cfg, Scene.from_arrays(_arrays(60, 100)))
+    valid = make_time_indexed(
+        cfg, Scene.from_arrays(_arrays(60, 100), device="cpu"))
     logger = MetricLogger(stream=open(os.devnull, "w"))
     trainer = Trainer(cfg, logger)
     state = trainer.finetune(batches, [valid],
