@@ -67,7 +67,29 @@ Phases, one line each; any failure raises and exits non-zero:
     losses, finite test OT / MMD for the pretrained and the finetuned
     model, checkpoints on disk; a rerun with 3 epochs resumes at epoch 2
     and its epoch-2 pretrain records equal an uninterrupted 3-epoch
-    pretrain's bit for bit.  s/epoch, rows/s, test eval seconds.
+    pretrain's bit for bit.  s/epoch, rows/s, test eval seconds;
+14. the discovery loop (``discovery_loop``):
+    a. generation at the reference's size: the GC scenario, 750 frames,
+       seed 666, with ``simulate`` (default ``SFParams``, 10 sub-steps a
+       frame) and with ``simulate_mlapm`` (``MLAPMParams.gc_paper()``),
+       through ``to_scene``, ``Scene.save`` and ``Scene.load``: s/scene,
+       frames/s, slots, peak memory; every active position finite; the
+       reloaded scene equal to the saved one; a 20-frame prefix of each
+       engine on the same schedule on the CPU, positions within 1e-4 m
+       and active masks equal;
+    b. ``piml_loop``, 2 iterations of 2 epochs on frame ranges of the
+       social-force scene (``LOOP_SPLITS``), ``pinnsf_bm`` at the paper's
+       widths with analytic message supervision, dropout 0.5, the phase-13
+       hyper-parameters otherwise, regenerating 750-frame GC scenes from
+       the vector fit: finite fits, ``iter_flag`` set on iteration 1, the
+       regenerated scenes load; pretrain s/epoch, extracted edges and
+       edges/s, fit and regeneration seconds.  Then both extractions
+       (``prepare_symbolic_regression_data``,
+       ``prepare_vector_regression_data``) of iteration 1's parameters on
+       ``EXTRACT_ROWS`` training rows, on the card and on the CPU: the
+       same kept rows, values to rtol 1e-4 and angles to atol 1e-4 (an
+       angle of a vector collinear with its base may flip sign with the
+       rounding of a zero cross product; such angles are counted).
 
 The line before the last holds the kernels' record as JSON (per kernel
 and per pass: ms, plain ms, ``bound_ms``, ``bound_by``, ``share`` of the
@@ -75,14 +97,16 @@ bound, ``library_ms`` null: no single PyTorch call computes a
 field-of-view top-k), and the last line is
 ``{"ok": true, "device": {...}}``.  Launch counts are zeroed just
 before each main path (phases 4-5, phase 9) and read just after it: they
-count only the main paths' launches.  Phases 12-13 run no kernel of the
-port: dense-N OT and MMD are torch ops, and the CLI pipeline's scenes
-(at most 337 agents, 4,094 obstacle points) stay below the 2^21 pair
-gate that routes the feature pass to K1 / K2.  It needs no network and starts no
-process besides ``nvidia-smi`` and the ``nvcc`` builds.
+count only the main paths' launches.  Phases 12-14 run no kernel of the
+port: dense-N OT and MMD are torch ops, and the CLI pipeline's and the
+discovery loop's GC scenes (at most ~340 agents, 4,094 obstacle points)
+stay below the 2^21 pair gate that routes the feature pass to K1 / K2;
+phase 14 reads both counts after its run to show it.  It needs no network
+and starts no process besides ``nvidia-smi`` and the ``nvcc`` builds.
 """
 
 import contextlib
+import dataclasses
 import json
 import math
 import os
@@ -122,6 +146,17 @@ CLI_CFG = dict(model="pinnsf_bm", dataset_name="gc2344", batch_size=128,
                val_coll_weight=30.0, time_decay=0.9, reg_weight=1e-2,
                collision_loss_version="v2", dropout=0.5, shuffle=True,
                patience=20, ft_patience=5, compat_swapped_patience=True)
+# the discovery loop (phase 14): the GC scenario at the reference's size,
+# the frame ranges of its social-force scene the loop pretrains on, and
+# the rows of the card-vs-CPU extraction check
+GEN_FRAMES = 750
+GEN_SEED = 666
+GEN_PREFIX = 20
+LOOP_SPLITS = {"train": (0, 500), "valid": (500, 750)}
+LOOP_EPOCHS = 2
+LOOP_CFG = dict(CLI_CFG, pinnsf_interaction="loss",
+                compat_unweighted_coll_pred=False, dropout=0.5)
+EXTRACT_ROWS = 4096
 # the bench's finetune hyper-parameters (bench.py:382, :520)
 TRAIN_CFG = dict(model="pinnsf_bm", dataset_name="gc2344", dropout=0.0,
                  skip_frames=25, valid_steps=TRAIN_FRAMES,
@@ -772,6 +807,242 @@ def cli_pipeline(dev, tmp):
     return rec
 
 
+# what a v2.2 file carries; the decoder re-derives the waypoint table,
+# dest_num and dest_idx from the destination track
+SCENE_FIELDS = ("position", "velocity", "acceleration", "destination",
+                "obstacles", "mask_p", "mask_v", "mask_a")
+
+
+def generate_gc(dev, tmp):
+    """Phase 14a: the GC scenario with both engines at the reference's
+    size, saved and reloaded; a 20-frame prefix of each held to the CPU
+    path on the same schedule.  Returns the scenes' paths."""
+    import torch
+
+    from piml_tpu_torch.gen import (SCENARIOS, SFParams, simulate,
+                                    simulate_mlapm, to_scene)
+    from piml_tpu_torch.models import MLAPMParams
+    from piml_tpu_torch.scene import Scene
+
+    engines = {
+        "socialforce": lambda sched, obs, frames, device: simulate(
+            SFParams(), sched, obs, frames, device=device),
+        "mlapm": lambda sched, obs, frames, device: simulate_mlapm(
+            MLAPMParams.gc_paper(), sched, frames, device=device),
+    }
+    paths = {}
+    for engine, run in engines.items():
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        base = torch.cuda.memory_allocated(dev)
+        t0 = time.perf_counter()
+        sched, obs = SCENARIOS["GC"](GEN_FRAMES, seed=GEN_SEED, device=dev)
+        t1 = time.perf_counter()
+        ps, _, act = run(sched, obs, GEN_FRAMES, dev)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        scene = to_scene(SFParams(), sched, obs, ps, act, device=dev,
+                         meta={"source": f"chip_smoke {engine} GC",
+                               "seed": GEN_SEED})
+        t3 = time.perf_counter()
+        paths[engine] = os.path.join(tmp, f"gc_{engine}.npy")
+        scene.save(paths[engine])
+        back = Scene.load(paths[engine], device=dev)
+        t4 = time.perf_counter()
+        peak = torch.cuda.max_memory_allocated(dev) - base
+        live = ps[act == 1]
+        if not torch.isfinite(live).all():
+            raise AssertionError(f"GC {engine}: non-finite active positions")
+        for key in SCENE_FIELDS:
+            if not torch.equal(torch.nan_to_num(getattr(back, key), 7.0),
+                               torch.nan_to_num(getattr(scene, key), 7.0)):
+                raise AssertionError(f"GC {engine}: reloaded {key} differs")
+        # the same schedule's first frames on the CPU (the path the tests
+        # hold to the JAX package); the run is causal, so its prefix is a
+        # run of its own
+        ps_c, _, act_c = run(sched.to("cpu"), obs, GEN_PREFIX, "cpu")
+        gap = float((ps[:GEN_PREFIX].cpu() - ps_c).abs().nan_to_num().max())
+        if not (torch.equal(act[:GEN_PREFIX].cpu(), act_c) and gap <= 1e-4
+                and torch.equal(ps[:GEN_PREFIX].isnan().cpu(), ps_c.isnan())):
+            raise AssertionError(f"GC {engine}: the card's first "
+                                 f"{GEN_PREFIX} frames differ from the "
+                                 f"CPU's (max |dp| {gap})")
+        say("generate_gc", engine=engine, frames=GEN_FRAMES, seed=GEN_SEED,
+            slots=int(sched.position.shape[0]),
+            agents=scene.num_pedestrians,
+            obstacles=int(scene.obstacles.shape[0]),
+            schedule_s=t1 - t0, simulate_s=t2 - t1, to_scene_s=t3 - t2,
+            save_load_s=t4 - t3, s_per_scene=t4 - t0,
+            frames_per_s=GEN_FRAMES / (t2 - t1),
+            peak_bytes_above_earlier_phases=peak,
+            active_agent_frames=int(act.sum()),
+            prefix_frames=GEN_PREFIX, prefix_max_abs_dp_m=gap,
+            prefix_masks_equal=True, reload_equal=True)
+    return paths
+
+
+def _angles_close(got, ref, cols):
+    """Angles to atol 1e-4, but for sign flips of vectors collinear with
+    their base (|θ| at the acos clamp and one side 0 or of the other's
+    magnitude); returns the count of such flips."""
+    import numpy as np
+
+    g, r = got[:, cols], ref[:, cols]
+    bad = np.abs(g - r) > 1e-4
+    mag = np.maximum(np.abs(g), np.abs(r))
+    at_clamp = np.minimum(mag, np.pi - mag) < 2e-3
+    flip = at_clamp & ((g == 0) | (r == 0) | (np.abs(np.abs(g) - mag) < 1e-4))
+    if (bad & ~flip).any():
+        raise AssertionError(f"angles differ: {g[bad & ~flip][:5]} vs "
+                             f"{r[bad & ~flip][:5]}")
+    return int((bad & flip).sum())
+
+
+def _values_close(got, ref, what, angle_cols=()):
+    import numpy as np
+
+    if got.shape != ref.shape:
+        raise AssertionError(f"{what}: kept rows {got.shape} vs {ref.shape}")
+    other = [c for c in range(got.shape[1]) if c not in angle_cols]
+    if not np.allclose(got[:, other], ref[:, other], rtol=1e-4, atol=1e-6):
+        raise AssertionError(f"{what}: card and CPU differ (max |diff| "
+                             f"{np.abs(got[:, other] - ref[:, other]).max()})")
+    return _angles_close(got, ref, list(angle_cols)) if angle_cols else 0
+
+
+def discovery_loop(dev, tmp, scene_path):
+    """Phase 14b: the closed loop on frame ranges of the generated
+    social-force GC scene, then both extractions on the card against the
+    CPU."""
+    import io
+
+    import numpy as np
+    import torch
+    import yaml
+
+    from piml_tpu_torch.config import PIMLConfig
+    from piml_tpu_torch.data import PointwiseData, PointwiseDataset
+    from piml_tpu_torch.exp import iterate
+    from piml_tpu_torch.models import ModelSpec, build_model
+    from piml_tpu_torch.ops import banded, pairwise
+    from piml_tpu_torch.scene import Scene, crop
+    from piml_tpu_torch.sr import (prepare_symbolic_regression_data,
+                                   prepare_vector_regression_data)
+    from piml_tpu_torch.train.trainer import (MetricLogger, checkpoint_path,
+                                              load_params)
+
+    src = Scene.load(scene_path, device="cpu")
+    config = os.path.join(tmp, "loop.yaml")
+    with open(config, "w") as f:
+        for split, (a, b) in LOOP_SPLITS.items():
+            path = os.path.join(tmp, f"loop_{split}.npy")
+            crop(src, a, b).save(path)
+            f.write(f"{split}:\n  - {path}\n")
+    work = os.path.join(tmp, "loop")
+    os.makedirs(work)
+    cfg = PIMLConfig(**LOOP_CFG, epochs=LOOP_EPOCHS,
+                     save_dir=os.path.join(work, "ck"), exp_name="loop",
+                     model_name_suffix="smoke")
+    flags = []
+    run_iteration = iterate.run_iteration
+
+    def spy(cfg_it, *args, **kw):
+        flags.append(cfg_it.iter_flag)
+        return run_iteration(cfg_it, *args, **kw)
+
+    logger = MetricLogger(stream=io.StringIO())
+    pairwise.KERNEL.launches = 0
+    banded.KERNEL.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with mock.patch.object(iterate, "run_iteration", spy):
+        results = iterate.piml_loop(
+            cfg, config, iterations=2, logger=logger, regen_scenario="GC",
+            regen_frames=GEN_FRAMES, work_dir=work, vector_fit=True,
+            device=dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(k1=pairwise.KERNEL.launches, k2=banded.KERNEL.launches)
+
+    fits = [{k: v for k, v in dataclasses.asdict(r).items()
+             if k.startswith(("fit_", "vec_"))} for r in results]
+    if flags != [False, True]:
+        raise AssertionError(f"loop: iter_flag per iteration {flags}")
+    if not all(v is not None and math.isfinite(v)
+               for fit in fits for v in fit.values()):
+        raise AssertionError(f"loop: fits {fits}")
+    regen = [r for r in logger.records if "regen_s" in r]
+    with open(regen[0]["regenerated"]) as f:
+        written = yaml.safe_load(f)
+    if set(written) != {"train", "valid"}:
+        raise AssertionError(f"loop: regenerated data config {written}")
+    # a scene file ends at its last agent's last frame
+    regen_scenes = [Scene.load(os.path.join(work, f"regen_iter0_{s}.npy"),
+                               device=dev) for s in ("train", "valid")]
+    regen_shapes = [[s.num_steps, s.num_pedestrians] for s in regen_scenes]
+    if any(not (1 < t <= GEN_FRAMES and n >= 1) for t, n in regen_shapes):
+        raise AssertionError(f"loop: regenerated scenes {regen_shapes}")
+
+    # per iteration: pretrain s/epoch, extraction and fit records
+    per_it, cur = [], []
+    for r in logger.records:
+        cur.append(r)
+        if "iteration" in r:
+            per_it.append(cur)
+            cur = []
+    iters = []
+    for recs in per_it:
+        times = [r["time"] for r in recs if "train_loss" in r]
+        ext = [r for r in recs if "extract_edges" in r][0]
+        iters.append(dict(
+            pretrain_s_per_epoch=[times[0]] + [b - a for a, b in
+                                               zip(times, times[1:])],
+            extract_edges=ext["extract_edges"],
+            vector_edges=ext["vector_edges"], extract_s=ext["extract_s"],
+            edges_per_s=ext["extract_edges"] / ext["extract_s"],
+            fit_s=ext["fit_s"]))
+
+    # both extractions of iteration 1's parameters, card against CPU
+    ds = PointwiseDataset(device=dev)
+    ds.load_data(config)
+    cfg1 = ds.build_dataset(cfg.replace(
+        model_name_suffix=f"{cfg.model_name_suffix}_iter1"))
+    model = build_model(ModelSpec.from_config(cfg1))
+    model.load_state_dict(load_params(checkpoint_path(cfg1, False)))
+    rows = PointwiseData(
+        ped_features=ds.train_data.ped_features[:EXTRACT_ROWS],
+        obs_features=ds.train_data.obs_features[:EXTRACT_ROWS],
+        self_features=ds.train_data.self_features[:EXTRACT_ROWS],
+        labels=ds.train_data.labels[:EXTRACT_ROWS],
+        meta_data=ds.train_data.meta_data)
+    rows_cpu = PointwiseData(**{k: (v.cpu() if torch.is_tensor(v) else v)
+                                for k, v in vars(rows).items()})
+    gpu = (prepare_symbolic_regression_data(model.to(dev), rows),
+           prepare_vector_regression_data(model, rows))
+    cpu = (prepare_symbolic_regression_data(model.cpu(), rows_cpu),
+           prepare_vector_regression_data(model, rows_cpu))
+    flips = _values_close(gpu[0][0], cpu[0][0], "SR features", (1, 3, 4))
+    flips += _values_close(gpu[0][1], cpu[0][1], "SR labels", (1,))
+    for g, c, what in zip(gpu[1], cpu[1], ("dr", "dv", "F")):
+        _values_close(g, c, f"vector {what}")
+    say("discovery_loop", iterations=2, epochs=LOOP_EPOCHS,
+        splits={k: list(v) for k, v in LOOP_SPLITS.items()},
+        widths=[cfg.encoder_hidden_size, cfg.processor_hidden_layers,
+                cfg.decoder_hidden_size],
+        wall_s=wall, iter0_train_rows=len(ds.train_data),
+        per_iteration=iters, fits=fits,
+        val_loss=[r.val_loss for r in results], iter_flags=flags,
+        regen_s=regen[0]["regen_s"], regen_frames=GEN_FRAMES,
+        regen_scenes_frames_agents=regen_shapes,
+        regen_config=sorted(written), kernel_launches=launches,
+        extract_check_rows=len(rows), extract_check_edges=len(gpu[0][0]),
+        extract_check_vector_edges=len(gpu[1][0]),
+        extract_card_vs_cpu="same kept rows, rtol 1e-4, angles atol 1e-4",
+        collinear_angle_flips=flips,
+        extract_max_abs_label_diff=float(np.abs(gpu[0][1][:, 0]
+                                                - cpu[0][1][:, 0]).max()))
+
+
 def main():
     import torch
 
@@ -1150,6 +1421,11 @@ def main():
     # ---- 13. the CLI pipeline -------------------------------------------------
     with tempfile.TemporaryDirectory() as tmp:
         cli_pipeline(dev, tmp)
+
+    # ---- 14. the discovery loop -----------------------------------------------
+    with tempfile.TemporaryDirectory() as tmp:
+        scenes = generate_gc(dev, tmp)
+        discovery_loop(dev, tmp, scenes["socialforce"])
 
     kernels = [
         dict(name="pairwise_topk (K1)", route="cuda",

@@ -15,7 +15,8 @@ view on one device:
 Feature dims are published back onto the config (dataset.py:144-146).
 The JAX package's ``stacked_channel_batches`` exists only to feed its
 finetune epoch, one ``lax.scan`` over stacked batches; the port's trainer
-loops over :func:`channel_batches` instead.  The polar views, the ratio /
+loops over :func:`channel_batches` instead.  ``polar=True`` builds the
+polar views (``*Polar`` classes, dataset.py:454, :503).  The ratio /
 scene-list / train-only orchestrators and ``data/processing.py`` are not
 ported yet (ROADMAP.md).
 """
@@ -144,8 +145,7 @@ class _Orchestrator:
     """Raw scenes of a data config, decoded onto ``device``."""
 
     def __init__(self, polar: bool = False, device: Device = "cuda:0"):
-        if polar:
-            raise NotImplementedError("the polar views are not ported yet")
+        self.polar = polar
         self.device = device
         self.raw: Dict[str, List[Scene]] = {}
 
@@ -178,10 +178,11 @@ class PointwiseDataset(_Orchestrator):
                 if split in ("train", "valid"):
                     # the velocity noise reaches train and valid features
                     # and labels; test stays clean (dataset.py:222-243)
-                    ti = make_time_indexed(cfg, _maybe_noisy(scene, cfg, i))
+                    ti = make_time_indexed(cfg, _maybe_noisy(scene, cfg, i),
+                                           polar=self.polar)
                     dataset[split].append(to_pointwise(ti))
                 else:
-                    ti = make_time_indexed(cfg, scene)
+                    ti = make_time_indexed(cfg, scene, polar=self.polar)
                     dataset[split].append(ti)
         self.train_data = merge_pointwise(dataset["train"])
         self.valid_data = merge_pointwise(dataset["valid"])
@@ -205,7 +206,7 @@ class FinetuneDataset(_Orchestrator):
         train_ti = []
         for split, scenes in raw.items():
             for scene in scenes:
-                ti = make_time_indexed(cfg, scene)
+                ti = make_time_indexed(cfg, scene, polar=self.polar)
                 if split == "train":
                     train_ti.append(ti)
                 elif split == "valid":

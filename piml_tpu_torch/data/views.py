@@ -6,8 +6,9 @@ Counterpart of ``piml_tpu/data/views.py`` (reference: src/data/data.py
 kinematics a rollout needs, as tensors on the scene's device;
 :func:`to_pointwise` flattens the predictable rows for the pretrain, and
 :func:`to_channeled` cuts the window channels the BPTT finetune trains on.
-There is no on-disk feature cache: the feature pass is rebuilt on every
-call.
+With ``polar=True`` the neighbour features are rewritten into each agent's
+heading-aligned polar frame (reference: data.py:866-955).  There is no
+on-disk feature cache: the feature pass is rebuilt on every call.
 """
 
 from __future__ import annotations
@@ -30,6 +31,7 @@ from piml_tpu_torch.physics import (
     relative_features,
     turn_detection,
 )
+from piml_tpu_torch.physics import polar as polar_mod
 from piml_tpu_torch.scene import Scene
 
 # Per-chunk budget of (frame, agent, object) pair elements in the feature
@@ -118,12 +120,14 @@ def _relative_features_chunked(scene: Scene, ncfg: NeighborConfig,
 
 
 @torch.no_grad()
-def make_time_indexed(cfg: PIMLConfig, scene: Scene,
+def make_time_indexed(cfg: PIMLConfig, scene: Scene, polar: bool = False,
                       time_chunk: int = 0) -> TimeIndexedData:
-    """Build the supervised frame-keyed view (reference: data.py:746-834).
-    ``time_chunk = 0`` picks a chunk that keeps the per-chunk pair work
-    near ``_PAIR_BUDGET`` elements.  Runs without autograd, not in
-    inference mode: the finetune's graph saves these tensors."""
+    """Build the supervised frame-keyed view (reference: data.py:746-834),
+    with ``polar`` the polar variant (data.py:866-955: the collision
+    labels are taken before the rewrite).  ``time_chunk = 0`` picks a
+    chunk that keeps the per-chunk pair work near ``_PAIR_BUDGET``
+    elements.  Runs without autograd, not in inference mode: the
+    finetune's graph saves these tensors."""
     ncfg = neighbor_config(cfg)
     if time_chunk == 0:
         m = max(scene.num_pedestrians, int(scene.obstacles.shape[0]), 128)
@@ -140,6 +144,11 @@ def make_time_indexed(cfg: PIMLConfig, scene: Scene,
 
     labels = torch.cat([scene.position, scene.velocity, scene.acceleration,
                         collision_label(ped_f)], dim=-1)
+    if polar:
+        heading = heading_direction(self_f[..., -5:-3])
+        ped_f = polar_mod.features_to_polar(ped_f, heading)
+        if obs_f.shape[-1] > 0:
+            obs_f = polar_mod.features_to_polar(obs_f, heading)
     abnormal = turn_detection(scene.position, scene.velocity, scene.mask_v)
 
     skip = cfg.skip_frames

@@ -4,6 +4,11 @@ from piml_tpu_torch.models.convert import (  # noqa: F401
     load_fixture,
     params_from_flax,
 )
+from piml_tpu_torch.models.mlapm import (  # noqa: F401
+    MLAPMParams,
+    mlapm_force,
+    mlapm_step,
+)
 from piml_tpu_torch.models.zoo import (  # noqa: F401
     PINNSF,
     ModelOutput,

@@ -12,4 +12,4 @@ from piml_tpu_torch.physics.features import (  # noqa: F401
     relative_features,
     turn_detection,
 )
-from piml_tpu_torch.physics import forces  # noqa: F401,E402
+from piml_tpu_torch.physics import forces, polar  # noqa: F401,E402

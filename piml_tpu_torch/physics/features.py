@@ -90,10 +90,16 @@ def _fill_zero_velocity(velocity: torch.Tensor) -> torch.Tensor:
 def heading_direction(velocity: torch.Tensor,
                       time_axis: bool = True) -> torch.Tensor:
     """Normalized heading, with the temporal zero-velocity fill for a
-    rank-3 ``(t, N, 2)`` input; zero vectors stay zero
+    rank-3 ``(t, N, 2)`` input and for each channel of a rank-4
+    ``(c, t, N, 2)`` one; zero vectors stay zero
     (src/data/data.py:391-394)."""
     if time_axis and velocity.ndim == 3:
         velocity = _fill_zero_velocity(velocity)
+    elif time_axis and velocity.ndim == 4:
+        # the fill is per (channel, agent): fill along t with the channel
+        # axis carried beside the agents
+        velocity = _fill_zero_velocity(
+            velocity.transpose(0, 1)).transpose(0, 1)
     norm = _norm(velocity, keepdim=True)
     denom = torch.where(norm == 0, 0.1, norm)
     return velocity / denom

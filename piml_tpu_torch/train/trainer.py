@@ -234,7 +234,9 @@ class Trainer:
     def _validate_pointwise(self, valid: PointwiseData) -> torch.Tensor:
         """Deterministic validation MSE over ``VAL_CHUNK``-row chunks:
         ``sq_sum / (2 n_valid)`` (reference: simulators.py:430-441), or the
-        message-supervision objective under ``val_on_train_objective``."""
+        message-supervision objective under ``val_on_train_objective``.
+        An empty validation set gives NaN, which never improves on the
+        best loss, as in the JAX package."""
         cfg = self.cfg
         supervise_msgs = (cfg.val_on_train_objective
                           and cfg.pinnsf_interaction == "loss")
@@ -251,7 +253,7 @@ class Trainer:
             else:
                 lab = valid.labels[s:s + VAL_CHUNK, 4:6]
                 sq = sq + ((out.pred_acc - lab) ** 2).sum()
-        return sq / (2.0 * max(len(valid), 1))
+        return sq / (2.0 * len(valid))
 
     def train_pointwise(self, train_data: PointwiseData,
                         valid_data: PointwiseData,

@@ -183,13 +183,19 @@ def test_port_imports_no_jax():
 @pytest.mark.parametrize("entry", [
     "Scene.load", "Scene.from_arrays", "load_scenes", "_Orchestrator",
     "PointwiseDataset", "FinetuneDataset", "VisDataset", "exp.run",
-    "exp.collision_eval"])
+    "exp.collision_eval", "SCENARIOS[crosswalk]",
+    "SCENARIOS[four_directional_square]", "SCENARIOS[basic_unit1]",
+    "SCENARIOS[basic_unit2]", "SCENARIOS[basic_unit3]", "SCENARIOS[GC]",
+    "simulate", "simulate_mlapm", "circle_demo", "to_scene",
+    "regenerate_scenario_npy", "regenerate_scene", "piml_loop"])
 def test_entry_points_default_to_the_card(entry):
     """Every entry point that places data runs on the card unless the
     caller asks for the CPU: its ``device`` parameter defaults to CUDA."""
     import inspect
 
+    from piml_tpu_torch import gen
     from piml_tpu_torch.data import datasets
+    from piml_tpu_torch.exp import iterate
     from piml_tpu_torch.exp import main as exp_main
 
     fn = {"Scene.load": Scene.load, "Scene.from_arrays": Scene.from_arrays,
@@ -199,9 +205,31 @@ def test_entry_points_default_to_the_card(entry):
           "FinetuneDataset": datasets.FinetuneDataset,
           "VisDataset": datasets.VisDataset,
           "exp.run": exp_main.run,
-          "exp.collision_eval": exp_main.collision_eval}[entry]
+          "exp.collision_eval": exp_main.collision_eval,
+          "simulate": gen.simulate, "simulate_mlapm": gen.simulate_mlapm,
+          "circle_demo": gen.circle_demo, "to_scene": gen.to_scene,
+          "regenerate_scenario_npy": gen.regenerate_scenario_npy,
+          "regenerate_scene": iterate.regenerate_scene,
+          "piml_loop": iterate.piml_loop,
+          **{f"SCENARIOS[{name}]": fn
+             for name, fn in gen.SCENARIOS.items()}}[entry]
     default = inspect.signature(fn).parameters["device"].default
     assert torch.device(default).type == "cuda"
+
+
+@pytest.mark.parametrize("cli", ["generate", "iterate"])
+def test_new_clis_refuse_to_run_without_a_gpu(monkeypatch, cli):
+    """``exp.generate.main`` and ``exp.iterate.main`` run on ``cuda:0``
+    only, like ``exp.main.main``: no CPU fallback."""
+    import importlib
+
+    mod = importlib.import_module(f"piml_tpu_torch.exp.{cli}")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    argv = {"generate": ["--scenario", "GC", "--frames", "5", "--out",
+                         os.devnull],
+            "iterate": ["--data_config", os.devnull, "--epochs", "1"]}[cli]
+    with pytest.raises(SystemExit, match="CUDA GPU"):
+        mod.main(argv)
 
 
 @pytest.mark.parametrize("lagged,retire,track", [(True, True, False),

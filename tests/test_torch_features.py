@@ -90,6 +90,21 @@ def test_heading_fill_matches_jax(rng):
     np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=1e-6)
 
 
+def test_heading_fill_rank4_matches_jax(rng):
+    """A (C, T, N, 2) input: the zero-velocity fill runs along time for each
+    channel (the JAX function vmaps it over channels), not along C."""
+    vel = rng.randn(2, 5, 4, 2).astype(np.float32)
+    vel[rng.rand(2, 5, 4) < 0.4] = 0.0
+    vel[0, :, 1] = 0.0                  # never moves in channel 0
+    vel[1, 1:4, 2] = 0.0                # a gap inside channel 1
+    ref = jf.heading_direction(jnp.asarray(vel))
+    got = tf.heading_direction(_t(vel))
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=1e-6)
+    for c in range(2):                  # each channel as its own trajectory
+        np.testing.assert_array_equal(
+            got[c].numpy(), tf.heading_direction(_t(vel[c])).numpy())
+
+
 def test_collision_helpers_match_jax(rng):
     pos = (rng.rand(20, 30, 2) * 5).astype(np.float32)
     pos[rng.rand(20, 30) < 0.2] = np.nan

@@ -364,6 +364,22 @@ def test_train_pointwise_two_epochs_match_jax(tiny, tmp_path):
         assert err <= 1e-4, (name, err)
 
 
+def test_empty_validation_set_never_improves_like_jax(tiny, tmp_path):
+    """No predictable validation rows: the JAX package's validation MSE
+    is 0 / 0 = NaN, so no epoch improves on the initial +inf."""
+    cfg_kw = dict(CFG, epochs=2, patience=5, ft_patience=5)
+    jrows = jviews.to_pointwise(tiny["jdata"])
+    jempty = jviews.to_pointwise(tiny["jdata"], [])
+    jtrainer, jparams = _jax_trainer(
+        dict(cfg_kw, save_dir=str(tmp_path / "jax")), jrows)
+    ref = jtrainer.train_pointwise(jrows, jempty, params=jparams)
+    got = Trainer(PIMLConfig(**cfg_kw, save_dir=str(tmp_path / "t")),
+                  _quiet()).train_pointwise(
+        to_pointwise(tiny["tdata"]), to_pointwise(tiny["tdata"], []))
+    assert len(jempty) == 0
+    assert got.best_val == ref.best_val == math.inf
+
+
 def _pretrain(tiny, save_dir, epochs, resume, dropout_p=0.5):
     cfg = PIMLConfig(**{**CFG, "epochs": epochs, "resume": resume,
                         "save_dir": str(save_dir), "dropout": dropout_p,

@@ -4,6 +4,7 @@
     python3 tools/profile_torch_stress.py [--frames 10]
     python3 tools/profile_torch_stress.py --train [--steps 2]
     python3 tools/profile_torch_stress.py --metrics [--steps 20]
+    python3 tools/profile_torch_stress.py --gen [--frames 10]
 
 Builds the dense-stress scene of ``chip_smoke.py`` (12,685 agents, 4,096
 obstacles, trained ``pinnsf_bm``), warms up, then traces ``--frames``
@@ -23,6 +24,13 @@ untraced wall split into forward, backward and optimizer.
 agents), per frame; and for pretrain steps (``--steps`` batches of 128
 seeded rows through the paper-width ``pinnsf_bm`` with live dropout),
 per step.
+
+``--gen``: the same for ``--frames`` frames of the two synthetic-crowd
+generators on ``chip_smoke.py``'s phase-14 GC schedule (750-frame
+capacity, seed 666): the social-force ``simulate`` (10 sub-steps a frame)
+and ``simulate_mlapm``, per frame, with the kernel launches a frame.
+Every frame steps all slots, so the first frames cost what any frame
+does.
 """
 
 import argparse
@@ -199,12 +207,45 @@ def metrics_and_pretrain(steps: int, top: int) -> None:
     report("pretrain_steps", "step", steps, total, rows)
 
 
+def generators(frames: int, top: int) -> None:
+    import torch
+
+    import chip_smoke
+    from piml_tpu_torch.gen import (SCENARIOS, SFParams, simulate,
+                                    simulate_mlapm)
+    from piml_tpu_torch.models import MLAPMParams
+
+    dev = torch.device(chip_smoke.DEVICE)
+    sched, obs = SCENARIOS["GC"](chip_smoke.GEN_FRAMES,
+                                 seed=chip_smoke.GEN_SEED, device=dev)
+    runs = {
+        "socialforce": lambda: simulate(SFParams(), sched, obs, frames,
+                                        device=dev),
+        "mlapm": lambda: simulate_mlapm(MLAPMParams.gc_paper(), sched,
+                                        frames, device=dev),
+    }
+    for label, fn in runs.items():
+        total, (busy_us, rows) = traced(fn, 1)
+        print(json.dumps({
+            "generator": label, "frames": frames,
+            "slots": int(sched.position.shape[0]),
+            "obstacles": int(len(obs)),
+            "wall_ms_per_frame_profiled": total / frames * 1e3,
+            "device_busy_ms_per_frame": busy_us / 1e3 / frames,
+            "device_idle_share": 1.0 - busy_us / 1e6 / total,
+            "kernels_per_frame": sum(c for _, _, c in rows) / frames,
+            "top_kernels": [dict(name=k[:80], ms_per_frame=us / 1e3 / frames,
+                                 calls_per_frame=c / frames)
+                            for us, k, c in rows[:top]]}))
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--frames", type=int, default=10)
     ap.add_argument("--top", type=int, default=12)
     ap.add_argument("--train", action="store_true")
     ap.add_argument("--metrics", action="store_true")
+    ap.add_argument("--gen", action="store_true")
     ap.add_argument("--steps", type=int, default=2)
     args = ap.parse_args()
 
@@ -219,6 +260,9 @@ def main():
         return
     if args.metrics:
         metrics_and_pretrain(max(args.steps, 20), args.top)
+        return
+    if args.gen:
+        generators(args.frames, args.top)
         return
     import chip_smoke
     from piml_tpu_torch.physics import NeighborConfig
