@@ -91,13 +91,36 @@ Phases, one line each; any failure raises and exits non-zero:
        angle of a vector collinear with its base may flip sign with the
        rounding of a zero cross product; such angles are counted).
 
+15. the model zoo:
+    a. every registry name and both finetune swaps, seeded, at the paper's
+       widths, on 4,096 pointwise rows of the GC window: the card against
+       the CPU (rtol 1e-4 / atol 1e-5 on every output that is not None);
+       ``pinnsf_m`` and ``pinnsf_bm`` with ``compute_dtype="bfloat16"``:
+       float32 outputs, ``pred_acc`` within ``0.03 · max(|pred|, 1)`` of
+       the CPU's float32 forward, both forwards' ms;
+    b. ``exp.main.run`` on phase 13's scenes: ``pinnsf_m`` for 2 epochs
+       with the first values of
+       ``configs/exp_configs/0206-pinnsf_m-gcdata2104-ps.yaml`` and its
+       finetune; ``pinnsf_res`` for 1 epoch with its corrector finetune
+       (both Adam groups step); ``base`` for 1 epoch with
+       ``configs/exp_configs/base_gcdata_ps_no_ft.yaml``'s values: finite
+       losses and test OT / MMD, checkpoints on disk, s/epoch;
+    c. the dense stress with 15b's ``pinnsf_m`` weights, 20 frames after
+       a 3-frame warm-up: K2 launches and fallbacks, finite live
+       positions, ms/frame; 5 frames through the kernels and the plain
+       versions, bitwise equal; the same 20 frames in bfloat16: ms/frame,
+       finite positions, the position gap to float32 after 5 frames;
+    d. phase 9's dense-N step with a ``pinnsf_m`` finetune model, 2 Adam
+       steps: s/step, peak memory, channel-batched K2 launches, finite
+       losses.
+
 The line before the last holds the kernels' record as JSON (per kernel
 and per pass: ms, plain ms, ``bound_ms``, ``bound_by``, ``share`` of the
 bound, ``library_ms`` null: no single PyTorch call computes a
 field-of-view top-k), and the last line is
 ``{"ok": true, "device": {...}}``.  Launch counts are zeroed just
-before each main path (phases 4-5, phase 9) and read just after it: they
-count only the main paths' launches.  Phases 12-14 run no kernel of the
+before each main path (phases 4-5, phase 9, phases 15c and 15d) and read
+just after it: they count only the main paths' launches.  Phases 12-14 run no kernel of the
 port: dense-N OT and MMD are torch ops, and the CLI pipeline's and the
 discovery loop's GC scenes (at most ~340 agents, 4,094 obstacle points)
 stay below the 2^21 pair gate that routes the feature pass to K1 / K2;
@@ -157,6 +180,33 @@ LOOP_EPOCHS = 2
 LOOP_CFG = dict(CLI_CFG, pinnsf_interaction="loss",
                 compat_unweighted_coll_pred=False, dropout=0.5)
 EXTRACT_ROWS = 4096
+# the model zoo (phase 15): every registry name and both finetune swaps at
+# the paper's widths on ZOO_ROWS pointwise rows of the GC scene; the CLI
+# pipeline with pinnsf_m (the first value of each list of
+# configs/exp_configs/0206-pinnsf_m-gcdata2104-ps.yaml), pinnsf_res (the
+# same, ft_lr_decay2 = 1 so that the corrector group trains) and base
+# (configs/exp_configs/base_gcdata_ps_no_ft.yaml); then pinnsf_m on the
+# dense stress and the dense-N finetune step
+ZOO_NAMES = ("base", "base1", "base2", "base3", "base4", "base5", "base6",
+             "base7", "base_nd", "base_test", "pinnsf", "pinnsf2",
+             "pinnsf_polar", "pinnsf_bottleneck", "pinnsf_pb", "pinnsf_pbc",
+             "pinnsf_bm", "pinnsf_m", "pinnsf_res")
+ZOO_ROWS = 4096
+ZOO_EPOCHS = 2
+ZOO_STRESS_FRAMES = 20
+ZOO_TRAIN_STEPS = 2
+M_CFG = dict(model="pinnsf_m", dataset_name="gc2344", pinnsf_interaction="sim",
+             collision_pred_weight=5e-2, reg_weight=1e-2, teacher_weight=0.0,
+             collision_loss_weight=100.0, hard_collision_penalty=1.0,
+             collision_focus_weight=1.0, val_coll_weight=30.0, time_decay=0.9,
+             learning_rate=2e-4, finetune_lr_decay=0.02, batch_size=128,
+             ft_batch_size=32, weight_decay=1e-6, dropout=0.5, patience=20,
+             ft_patience=5, valid_steps=10, collision_threshold=0.5)
+BASE_CFG = dict(model="base", learning_rate=5e-4, batch_size=128,
+                weight_decay=1e-6, dropout=0.5, patience=30,
+                sight_angle_ped=100.0, sight_angle_obs=100.0,
+                dist_threshold_ped=10.0, dist_threshold_obs=10.0,
+                correction_hidden_layers=1)
 # the bench's finetune hyper-parameters (bench.py:382, :520)
 TRAIN_CFG = dict(model="pinnsf_bm", dataset_name="gc2344", dropout=0.0,
                  skip_frames=25, valid_steps=TRAIN_FRAMES,
@@ -682,6 +732,28 @@ def dense_metrics(dev, n_agents):
     return rec
 
 
+def cut_cli_scenes(tmp):
+    """The CLI pipeline's scenes (``CLI_SPLITS`` of the committed GC
+    scenes) written with ``Scene.save``; returns the pretrain and finetune
+    data configs."""
+    from piml_tpu_torch.scene import Scene, crop
+
+    configs = {}
+    for name, file in (("pretrain", "gc_sf_repro.npy"),
+                       ("finetune", "gc_mlapm_repro.npy")):
+        src = Scene.load(os.path.join(ROOT, "repro_work", file),
+                         device="cpu")
+        lines = []
+        for split, (a, b) in CLI_SPLITS.items():
+            path = os.path.join(tmp, f"{name}_{split}.npy")
+            crop(src, a, b).save(path)
+            lines.append(f"{split}:\n  - {path}\n")
+        configs[name] = os.path.join(tmp, f"{name}.yaml")
+        with open(configs[name], "w") as f:
+            f.write("".join(lines))
+    return configs
+
+
 def cli_pipeline(dev, tmp):
     """Phase 13: ``piml_tpu_torch.exp.main.run`` on scenes cut from the
     committed GC scenes (``CLI_SPLITS``) and written with ``Scene.save``:
@@ -697,23 +769,10 @@ def cli_pipeline(dev, tmp):
     from piml_tpu_torch.config import PIMLConfig
     from piml_tpu_torch.data import PointwiseDataset
     from piml_tpu_torch.exp.main import run
-    from piml_tpu_torch.scene import Scene, crop
     from piml_tpu_torch.train.trainer import (MetricLogger, Trainer,
                                               checkpoint_path)
 
-    configs = {}
-    for name, file in (("pretrain", "gc_sf_repro.npy"),
-                       ("finetune", "gc_mlapm_repro.npy")):
-        src = Scene.load(os.path.join(ROOT, "repro_work", file),
-                         device="cpu")
-        lines = []
-        for split, (a, b) in CLI_SPLITS.items():
-            path = os.path.join(tmp, f"{name}_{split}.npy")
-            crop(src, a, b).save(path)
-            lines.append(f"{split}:\n  - {path}\n")
-        configs[name] = os.path.join(tmp, f"{name}.yaml")
-        with open(configs[name], "w") as f:
-            f.write("".join(lines))
+    configs = cut_cli_scenes(tmp)
     cfg = PIMLConfig(**CLI_CFG, epochs=CLI_EPOCHS, finetune_flag=True,
                      resume=True, data_config=configs["pretrain"],
                      ft_data_config=configs["finetune"],
@@ -1041,6 +1100,287 @@ def discovery_loop(dev, tmp, scene_path):
         collinear_angle_flips=flips,
         extract_max_abs_label_diff=float(np.abs(gpu[0][1][:, 0]
                                                 - cpu[0][1][:, 0]).max()))
+
+
+def outputs_gap(got, ref, what):
+    """The largest |card − CPU| over a ``ModelOutput``'s fields; raises
+    unless the same fields are None, every output is float32 with the same
+    non-finite entries, and the rest agree to rtol 1e-4 / atol 1e-5."""
+    import torch
+
+    worst = 0.0
+    for field in ref._fields:
+        g, r = getattr(got, field), getattr(ref, field)
+        if (g is None) != (r is None):
+            raise AssertionError(f"{what} {field}: None on one side only")
+        if r is None:
+            continue
+        g = g.cpu()
+        fin = torch.isfinite(r)
+        err = max_abs_err(g, r)
+        if g.dtype != torch.float32 or not (
+                math.isfinite(err)
+                and torch.allclose(g[fin], r[fin], rtol=1e-4, atol=1e-5)):
+            raise AssertionError(f"{what} {field}: card vs CPU max |diff| "
+                                 f"{err} ({g.dtype})")
+        worst = max(worst, err)
+    return worst
+
+
+def zoo_forwards(dev, data):
+    """Phase 15a: every registry name and both finetune swaps, seeded, at
+    the paper's widths, on ``ZOO_ROWS`` pointwise rows of the GC window:
+    the card against the CPU; then ``pinnsf_m`` and ``pinnsf_bm`` with
+    ``compute_dtype="bfloat16"`` on the card against the CPU's float32
+    forward (``0.03 · max(|pred_acc|, 1)``, the bound of the JAX
+    package's bfloat16 test), and both forwards' milliseconds."""
+    import torch
+
+    from piml_tpu_torch.config import PIMLConfig
+    from piml_tpu_torch.data import to_pointwise
+    from piml_tpu_torch.models import (ModelSpec, build_finetune_model,
+                                       build_model)
+
+    rows = to_pointwise(data)
+    pick = torch.linspace(0, len(rows) - 1, ZOO_ROWS).long().to(dev)
+    args = [rows.ped_features[pick], rows.obs_features[pick],
+            rows.self_features[pick]]
+    args_cpu = [a.cpu() for a in args]
+    gaps, kept = {}, {}
+    for name, finetune in ([(n, False) for n in ZOO_NAMES]
+                           + [("base", True), ("pinnsf_res", True)]):
+        spec = ModelSpec.from_config(PIMLConfig(
+            model=name, dataset_name="gc2344", dropout=0.0))
+        with torch.random.fork_rng(devices=[]):
+            torch.manual_seed(SEED)
+            model = (build_finetune_model if finetune else build_model)(
+                spec).eval()
+        label = f"{name} (finetune)" if finetune else name
+        with torch.no_grad():
+            ref = model(*args_cpu)
+            got = model.to(dev)(*args)
+        torch.cuda.synchronize()
+        gaps[label] = outputs_gap(got, ref, f"zoo {label}")
+        if name in ("pinnsf_m", "pinnsf_bm") and not finetune:
+            kept[name] = (spec, model, ref)
+    bf16 = {}
+    for name, (spec, model, ref) in kept.items():
+        m16 = build_model(dataclasses.replace(spec, compute_dtype="bfloat16"))
+        m16.load_state_dict(model.state_dict())
+        m16 = m16.to(dev).eval()
+        with torch.no_grad():
+            out = m16(*args)
+            ms32 = cuda_ms(lambda: model(*args), 10)
+            ms16 = cuda_ms(lambda: m16(*args), 10)
+        if any(x is not None and x.dtype != torch.float32 for x in out):
+            raise AssertionError(f"bf16 {name}: outputs "
+                                 f"{[None if x is None else x.dtype for x in out]}")
+        scale = max(float(ref.pred_acc.abs().max()), 1.0)
+        gap = max_abs_err(out.pred_acc.cpu(), ref.pred_acc)
+        if not gap <= 0.03 * scale:
+            raise AssertionError(f"bf16 {name}: pred_acc {gap} from the "
+                                 f"float32 forward (scale {scale})")
+        bf16[name] = dict(max_abs_gap_to_f32=gap, scale=scale,
+                          gap_share_of_scale=gap / scale, forward_ms_f32=ms32,
+                          forward_ms_bf16=ms16)
+    say("zoo_forwards", rows=ZOO_ROWS, models=len(gaps),
+        card_vs_cpu="rtol 1e-4, atol 1e-5", max_abs_err=gaps, bf16=bf16)
+
+
+def zoo_pipeline(dev, tmp):
+    """Phase 15b: ``exp.main.run`` on the CLI pipeline's scenes with
+    ``pinnsf_m`` (``ZOO_EPOCHS``, finetune), ``pinnsf_res`` (1 epoch,
+    finetune: the corrector swap and its two Adam groups, both of which
+    must step) and ``base`` (1 epoch, no finetune).  Finite losses and
+    test OT / MMD, checkpoints on disk.  Returns the ``pinnsf_m`` config
+    and its pretrained weights."""
+    import io
+
+    import torch
+
+    from piml_tpu_torch.config import PIMLConfig
+    from piml_tpu_torch.exp.main import run
+    from piml_tpu_torch.train import trainer as trainer_mod
+    from piml_tpu_torch.train.trainer import (MetricLogger, checkpoint_path,
+                                              load_params)
+
+    configs = cut_cli_scenes(tmp)
+    out = {}
+    for label, kw, epochs, finetune in (
+            ("pinnsf_m", M_CFG, ZOO_EPOCHS, True),
+            ("pinnsf_res", dict(M_CFG, model="pinnsf_res", ft_lr_decay2=1.0),
+             1, True),
+            ("base", BASE_CFG, 1, False)):
+        cfg = PIMLConfig(**kw, epochs=epochs, finetune_flag=finetune,
+                         data_config=configs["pretrain"],
+                         ft_data_config=configs["finetune"],
+                         save_dir=os.path.join(tmp, label), exp_name="zoo",
+                         model_name_suffix=label)
+        jsonl = os.path.join(tmp, f"{label}.jsonl")
+        logger = MetricLogger(jsonl_path=jsonl, stream=io.StringIO())
+        optimizers = []
+        make_optimizer = trainer_mod.make_optimizer
+
+        def spy(*a, **k):
+            optimizers.append(make_optimizer(*a, **k))
+            return optimizers[-1]
+
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with mock.patch.object(trainer_mod, "make_optimizer", spy):
+            results = run(cfg, logger, device=dev)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        logger.close()
+        with open(jsonl) as f:
+            recs = [json.loads(line) for line in f]
+        pre = [r for r in recs if "acc_pred" in r]
+        ft_val = [r for r in recs if "val_coll" in r]
+        tests = [r for r in recs if "test_ot" in r]
+        losses = [v for r in recs for k, v in r.items() if "loss" in k]
+        if (len(pre) != epochs or len(tests) != 1 + finetune
+                or finetune and len(ft_val) != epochs + 1):
+            raise AssertionError(f"zoo {label}: {len(pre)} pretrain epochs, "
+                                 f"{len(ft_val)} validations, {len(tests)} "
+                                 "tests")
+        if not all(math.isfinite(v) for v in losses) or not all(
+                math.isfinite(r["test_ot"]) and math.isfinite(r["test_mmd"])
+                for r in tests):
+            raise AssertionError(f"zoo {label}: losses {losses}, tests "
+                                 f"{tests}")
+        files = [checkpoint_path(cfg, False)] + (
+            [checkpoint_path(cfg, True)] if finetune else [])
+        missing = [f for f in files if not os.path.isfile(f)]
+        if missing:
+            raise AssertionError(f"zoo {label}: checkpoints missing: "
+                                 f"{missing}")
+        rec = dict(epochs=epochs, finetune=finetune, wall_s=wall,
+                   pretrain_s_per_epoch=[pre[0]["time"]] + [
+                       b["time"] - a["time"] for a, b in zip(pre, pre[1:])],
+                   finetune_s_per_epoch=[b["ts"] - a["ts"] for a, b in
+                                         zip(ft_val, ft_val[1:])],
+                   pretrain_val=[r["val_loss"] for r in recs
+                                 if "val_mse" in r and "val_coll" not in r],
+                   finetune_val=[r["val_loss"] for r in ft_val],
+                   test=[{k: r[k] for k in ("test_mae", "test_ot",
+                                            "test_mmd", "test_coll")}
+                         for r in tests], results=results)
+        if label == "pinnsf_res":
+            groups = optimizers[-1].param_groups
+            stepped = [all(int(optimizers[-1].state[p]["step"]) > 0
+                           for p in g["params"]) for g in groups]
+            if len(groups) != 2 or not all(stepped):
+                raise AssertionError(f"zoo pinnsf_res: {len(groups)} "
+                                     f"groups, stepped {stepped}")
+            rec["finetune_groups"] = [dict(lr=g["lr"],
+                                           weight_decay=g["weight_decay"],
+                                           tensors=len(g["params"]))
+                                      for g in groups]
+        out[label] = rec
+        if label == "pinnsf_m":
+            m_cfg = cfg
+            m_weights = load_params(checkpoint_path(cfg, False))
+    say("zoo_pipeline", scenes={k: list(v) for k, v in CLI_SPLITS.items()},
+        **out)
+    return m_cfg, m_weights
+
+
+def zoo_stress(dev, sc, ncfg, cfg, weights):
+    """Phase 15c: the dense stress with the ``pinnsf_m`` weights of phase
+    15b: a warm-up, then ``ZOO_STRESS_FRAMES`` frames (the main path,
+    counted); 5 frames through the kernels and the plain versions, bitwise
+    equal; then the same frames with ``compute_dtype="bfloat16"``
+    (counted apart) and its largest position gap to the float32 run after
+    5 frames.  Returns the main path's launch counts."""
+    import torch
+
+    from piml_tpu_torch.models import ModelSpec, build_model
+    from piml_tpu_torch.ops import banded, pairwise
+
+    def loaded(spec):
+        model = build_model(spec)
+        model.load_state_dict(weights)
+        return model.to(dev).eval()
+
+    def counted(model):
+        pairwise.KERNEL.launches = 0
+        banded.KERNEL.launches = 0
+        banded.KERNEL.fallbacks = 0
+        stress_rollout(model, sc, ncfg, WARMUP_FRAMES)
+        outs, wall = stress_rollout(model, sc, ncfg, ZOO_STRESS_FRAMES)
+        counts = dict(k1=pairwise.KERNEL.launches, k2=banded.KERNEL.launches,
+                      k2_fallbacks=banded.KERNEL.fallbacks)
+        if not torch.isfinite(outs.p[outs.mask == 1]).all():
+            raise AssertionError("pinnsf_m dense stress: non-finite live "
+                                 "positions")
+        if counts["k2"] == 0:
+            raise AssertionError("pinnsf_m dense stress: K2 never launched")
+        return outs, wall, counts
+
+    spec = ModelSpec.from_config(cfg)
+    model = loaded(spec)
+    outs, wall, counts = counted(model)
+    short, _ = stress_rollout(model, sc, ncfg, 5)
+    with plain_route():
+        short_ref, _ = stress_rollout(model, sc, ncfg, 5)
+    assert_equal(short.p, short_ref.p, "pinnsf_m 5-frame rollout positions")
+    outs16, wall16, counts16 = counted(
+        loaded(dataclasses.replace(spec, compute_dtype="bfloat16")))
+    gap5 = max_abs_err(outs16.p[5], outs.p[5])
+    say("zoo_dense_stress", model="pinnsf_m", frames=ZOO_STRESS_FRAMES,
+        agents=N_AGENTS, obstacles=N_OBSTACLES,
+        ms_per_frame=wall / ZOO_STRESS_FRAMES * 1e3, **counts,
+        live_final=int((outs.mask[-1] == 1).sum()),
+        kernel_vs_plain_5_frames_bitwise=True,
+        bf16=dict(ms_per_frame=wall16 / ZOO_STRESS_FRAMES * 1e3, **counts16,
+                  max_abs_position_gap_after_5_frames_m=gap5))
+    return counts
+
+
+def zoo_dense_step(dev):
+    """Phase 15d: the dense-N finetune step of phase 9 with a seeded
+    ``pinnsf_m`` finetune model (``pred_acc`` clamped to ±5):
+    ``ZOO_TRAIN_STEPS`` Adam steps whose feature passes launch the
+    channel-batched K2 on every frame.  Returns the launch counts."""
+    import torch
+
+    from piml_tpu_torch.config import PIMLConfig
+    from piml_tpu_torch.engine import training_rollout_loss
+    from piml_tpu_torch.ops import banded, pairwise
+    from piml_tpu_torch.train.trainer import make_optimizer
+
+    cfg = PIMLConfig(**dict(TRAIN_CFG, model="pinnsf_m"),
+                     ft_batch_size=TRAIN_CHANNELS)
+    batch = dense_batch(dev)
+    model = finetune_model(cfg, dev)
+    clamped = Clamped(model)
+    opt = make_optimizer(cfg, model, finetune=True)
+    pairwise.KERNEL.launches = 0
+    banded.KERNEL.launches = 0
+    banded.KERNEL.fallbacks = 0
+    torch.cuda.reset_peak_memory_stats(dev)
+    step_s, step_losses = [], []
+    for _ in range(ZOO_TRAIN_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = training_rollout_loss(clamped, cfg, batch)
+        opt.zero_grad(set_to_none=True)
+        out.loss.backward()
+        opt.step()
+        step_losses.append(out.loss.item())
+        step_s.append(time.perf_counter() - t0)
+    counts = dict(k1=pairwise.KERNEL.launches, k2=banded.KERNEL.launches,
+                  k2_fallbacks=banded.KERNEL.fallbacks)
+    say("zoo_dense_finetune_step", model="pinnsf_m", channels=TRAIN_CHANNELS,
+        frames=TRAIN_FRAMES, agents=N_AGENTS, s_per_step=step_s,
+        max_memory_allocated_bytes=torch.cuda.max_memory_allocated(dev),
+        losses=step_losses, **counts)
+    if not all(math.isfinite(x) for x in step_losses):
+        raise AssertionError(f"pinnsf_m dense finetune: losses {step_losses}")
+    if counts["k2"] < ZOO_TRAIN_STEPS * TRAIN_FRAMES:
+        raise AssertionError("pinnsf_m dense finetune: K2 was not launched "
+                             f"on every frame ({counts['k2']} launches)")
+    return counts
 
 
 def main():
@@ -1427,18 +1767,31 @@ def main():
         scenes = generate_gc(dev, tmp)
         discovery_loop(dev, tmp, scenes["socialforce"])
 
+    # ---- 15. the model zoo ----------------------------------------------------
+    zoo_forwards(dev, data)
+    with tempfile.TemporaryDirectory() as tmp:
+        m_cfg, m_weights = zoo_pipeline(dev, tmp)
+    zoo_roll = zoo_stress(dev, sc, ncfg, m_cfg, m_weights)
+    zoo_ft = zoo_dense_step(dev)
+
     kernels = [
         dict(name="pairwise_topk (K1)", route="cuda",
              source="piml_tpu_torch/csrc/pairwise_topk.cu",
              replaces="piml_tpu/ops/pairwise.py:91",
-             launches=launches["k1"], launches_default_rollout=k1_default,
-             launches_k1_route=launches["k1"] - k1_default, **record["k1"]),
+             launches=launches["k1"] + zoo_roll["k1"] + zoo_ft["k1"],
+             launches_default_rollout=k1_default,
+             launches_k1_route=launches["k1"] - k1_default,
+             launches_pinnsf_m_rollout=zoo_roll["k1"],
+             launches_pinnsf_m_finetune=zoo_ft["k1"], **record["k1"]),
         dict(name="banded_topk (K2)", route="cuda",
              source="piml_tpu_torch/csrc/banded_topk.cu",
              replaces="piml_tpu/ops/banded.py:116",
-             launches=launches["k2"] + ft_launches["k2"],
+             launches=(launches["k2"] + ft_launches["k2"] + zoo_roll["k2"]
+                       + zoo_ft["k2"]),
              launches_rollout=launches["k2"],
-             launches_finetune=ft_launches["k2"], **record["k2"]),
+             launches_finetune=ft_launches["k2"],
+             launches_pinnsf_m_rollout=zoo_roll["k2"],
+             launches_pinnsf_m_finetune=zoo_ft["k2"], **record["k2"]),
     ]
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -1,4 +1,10 @@
-from piml_tpu_torch.models.blocks import MLP, ResBlock, ResDNN, activation_fn  # noqa: F401
+from piml_tpu_torch.models.blocks import (  # noqa: F401
+    MLP,
+    AttnPooling,
+    ResBlock,
+    ResDNN,
+    activation_fn,
+)
 from piml_tpu_torch.models.convert import (  # noqa: F401
     PRETRAINED,
     load_fixture,
@@ -11,8 +17,11 @@ from piml_tpu_torch.models.mlapm import (  # noqa: F401
 )
 from piml_tpu_torch.models.zoo import (  # noqa: F401
     PINNSF,
+    BaseSim,
+    BaseTest,
     ModelOutput,
     ModelSpec,
+    apply_collision_rules,
     build_finetune_model,
     build_model,
     goal_acceleration,

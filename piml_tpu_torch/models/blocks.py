@@ -5,6 +5,15 @@ module names (``dense_0``, ``block_0``, ``MLP_0``), so a flax parameter path
 ``a/b/dense_0/kernel`` is the ``state_dict`` key ``a.b.dense_0.weight``
 (see ``models/convert.py``).
 
+``dtype`` is flax's ``nn.Dense(dtype=...)``: the parameters stay float32;
+a layer with a dtype casts its input, weight and bias to it and returns
+that dtype; a layer without one computes in the promoted dtype of its
+input and parameters (flax's ``promote_dtype``), so a bfloat16 input
+meeting float32 parameters computes in float32.  The elementwise ops
+between layers (activations, the residual add, sums, dropout) run in
+the dtype their operands carry, as in JAX.  ``torch.autocast`` would
+choose otherwise, so it is not used.
+
 ``ResDNN(chain=False)`` reproduces the reference quirk that each block
 reads the original input, so only the last block's output survives
 (model.py:115-119): it builds that one block only.
@@ -43,16 +52,26 @@ def _identity(x):
     return x
 
 
+def dense(layer: nn.Linear, x: torch.Tensor,
+          dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """``layer`` applied with flax ``nn.Dense`` dtype semantics (above)."""
+    dt = dtype or torch.promote_types(x.dtype, layer.weight.dtype)
+    return F.linear(x.to(dt), layer.weight.to(dt), layer.bias.to(dt))
+
+
 class MLP(nn.Module):
     """Dense stack: ``activation`` between layers, ``output_act`` on the
-    last (reference: model.py:40-65; default output is the identity)."""
+    last (reference: model.py:40-65; default output is the identity);
+    ``dtype``: the layers' compute dtype."""
 
     def __init__(self, in_features: int, features: Sequence[int],
                  activation: Callable = F.relu,
-                 output_act: Callable = _identity):
+                 output_act: Callable = _identity,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.activation = activation
         self.output_act = output_act
+        self.dtype = dtype
         self.n = len(features)
         for i, f in enumerate(features):
             self.add_module(f"dense_{i}", nn.Linear(in_features, f))
@@ -61,7 +80,7 @@ class MLP(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         for i in range(self.n):
-            x = getattr(self, f"dense_{i}")(x)
+            x = dense(getattr(self, f"dense_{i}"), x, self.dtype)
             x = self.activation(x) if i < self.n - 1 else self.output_act(x)
         return x
 
@@ -70,9 +89,11 @@ class ResBlock(nn.Module):
     """``x + act(MLP(x))`` (reference: model.py:68-79)."""
 
     def __init__(self, in_features: int, features: Sequence[int],
-                 activation: Callable = F.relu):
+                 activation: Callable = F.relu,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
-        self.MLP_0 = MLP(in_features, features, activation, activation)
+        self.MLP_0 = MLP(in_features, features, activation, activation,
+                         dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return x + self.MLP_0(x)
@@ -107,13 +128,14 @@ class ResDNN(nn.Module):
     def __init__(self, in_features: int,
                  hidden_units: Sequence[Sequence[int]],
                  activation: Callable = F.relu, dropout: float = 0.0,
-                 chain: bool = False):
+                 chain: bool = False, dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.chain = chain
         blocks = hidden_units if chain else hidden_units[-1:]
         self.n = len(blocks)
         for i, h in enumerate(blocks):
-            self.add_module(f"block_{i}", ResBlock(in_features, h, activation))
+            self.add_module(f"block_{i}",
+                            ResBlock(in_features, h, activation, dtype))
         self.p = dropout
 
     def forward(self, x: torch.Tensor, rng: Rng = None) -> torch.Tensor:
@@ -121,3 +143,17 @@ class ResDNN(nn.Module):
         for i in range(self.n):
             out = getattr(self, f"block_{i}")(out if self.chain else x)
         return dropout(out, self.p, rng)
+
+
+class AttnPooling(nn.Module):
+    """Softmax-of-exp attention pooling over the neighbour axis
+    (reference: model.py:950-970): weights ``softmax(exp(MLP(x)))`` over
+    the k axis, ``(..., k, d) → (..., d)``."""
+
+    def __init__(self, in_features: int, dim: int):
+        super().__init__()
+        self.MLP_0 = MLP(in_features, (dim, 1))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        attn = torch.softmax(torch.exp(self.MLP_0(x)), dim=-2)  # ..., k, 1
+        return (x * attn).sum(dim=-2)

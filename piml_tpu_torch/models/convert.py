@@ -3,7 +3,8 @@
 The port's modules carry the flax module names (``models/blocks.py``), so
 a flax leaf ``a/b/dense_0/kernel`` becomes ``a.b.dense_0.weight``.  A flax
 ``Dense`` kernel is ``(in, out)``; a ``torch.nn.Linear`` weight is
-``(out, in)``, hence the transpose.
+``(out, in)``, hence the transpose.  A parameter declared at the top of
+the model (``pinnsf2``'s scalar ``tau_delta``) keeps its name.
 
 ``fixtures/pinnsf_bm_gc_finetuned.npz`` holds the trained ``pinnsf_bm``
 weights of ``bench_fixtures/pinnsf_bm_gc_finetuned.msgpack`` and
@@ -68,6 +69,8 @@ def params_from_flax(tree: Mapping[str, Any]) -> "OrderedDict[str, torch.Tensor]
             sd[name + ".weight"] = torch.from_numpy(np.array(arr.T, order="C"))
         elif leaf == "bias":
             sd[name + ".bias"] = torch.from_numpy(np.array(arr))
+        elif not mods:
+            sd[leaf] = torch.from_numpy(np.array(arr))
         else:
             raise ValueError(f"unexpected flax leaf {path!r}")
     return sd

@@ -10,8 +10,8 @@ only on ``(seed, epoch)``, so a run resumed from its last full training
 state (``train/checkpoint.py``) continues bit for bit.  Both loops run on
 the device their data lies on.
 
-Not ported yet (ROADMAP.md): channel data parallelism, and the
-per-group finetune optimizer of ``base`` / ``pinnsf_res``.
+Not ported yet (ROADMAP.md): channel data parallelism; ``n_devices > 1``
+raises in :meth:`Trainer.finetune`.
 """
 
 from __future__ import annotations
@@ -42,6 +42,11 @@ StateDict = Dict[str, torch.Tensor]
 VAL_CHUNK = 8192
 
 
+# finetunes whose corrector branch gets a learning rate of its own
+# (simulators.py:108-124)
+GROUPED_FINETUNES = ("base", "pinnsf_res")
+
+
 def make_optimizer(cfg: PIMLConfig, params, finetune: bool = False
                    ) -> torch.optim.Optimizer:
     """Adam with coupled L2 weight decay, as the reference builds it.
@@ -52,13 +57,29 @@ def make_optimizer(cfg: PIMLConfig, params, finetune: bool = False
     (same b1 = 0.9, b2 = 0.999, eps = 1e-8 outside the square root, bias
     correction on both moments).  The finetune scales the learning rate by
     ``finetune_lr_decay`` and the decay by ``finetune_wd_aug``
-    (simulators.py:125-131); ``base`` and ``pinnsf_res``, whose finetune
-    has per-group learning rates, are not ported yet."""
+    (simulators.py:125-131); the finetunes of ``GROUPED_FINETUNES`` have
+    two parameter groups instead, the JAX package's
+    ``optax.multi_transform`` split on ``"corrector"`` in the parameter's
+    name: the corrector at ``lr·ft_lr_decay2``, the pretrained weights at
+    ``lr·finetune_lr_decay``, both with decay ``wd``.
+
+    ``params``: the model, or its parameters (which cannot be split into
+    groups)."""
     lr, wd = cfg.learning_rate, cfg.weight_decay
+    if finetune and cfg.model in GROUPED_FINETUNES:
+        if not isinstance(params, torch.nn.Module):
+            raise ValueError(f"the {cfg.model!r} finetune optimizer splits "
+                             "parameters by name: pass the model")
+        named = list(params.named_parameters())
+        return torch.optim.Adam(
+            [{"params": [p for n, p in named if "corrector" in n],
+              "lr": lr * cfg.ft_lr_decay2},
+             {"params": [p for n, p in named if "corrector" not in n],
+              "lr": lr * cfg.finetune_lr_decay}],
+            lr=lr, weight_decay=wd)
+    if isinstance(params, torch.nn.Module):
+        params = params.parameters()
     if finetune:
-        if cfg.model in ("base", "pinnsf_res"):
-            raise NotImplementedError(
-                f"the {cfg.model!r} finetune optimizer is not ported yet")
         lr, wd = lr * cfg.finetune_lr_decay, wd * cfg.finetune_wd_aug
     return torch.optim.Adam(params, lr=lr, weight_decay=wd)
 
@@ -357,8 +378,13 @@ class Trainer:
         ``train_scenes`` (the windowed scenes), batched here as
         ``channel_batches(train_scenes, cfg.ft_batch_size,
         RandomState(cfg.seed), shuffle)``.  Everything runs on the device
-        of the batches."""
+        of the batches; ``cfg.n_devices > 1`` raises (the JAX package
+        shards the channels over a mesh there)."""
         cfg = self.cfg
+        if cfg.n_devices > 1:
+            raise NotImplementedError(
+                "channel data parallelism over n_devices > 1 is not ported "
+                "to PyTorch yet (ROADMAP.md Queue 1, the parallel layer)")
         if (train_batches is None) == (train_scenes is None):
             raise ValueError("pass exactly one of train_batches / "
                              "train_scenes")
@@ -382,7 +408,7 @@ class Trainer:
             model.load_state_dict(merge_pretrained(model.state_dict(),
                                                    pretrained))
         self.model = model
-        opt = make_optimizer(cfg, model.parameters(), finetune=True)
+        opt = make_optimizer(cfg, model, finetune=True)
         state = TrainState(params=model.state_dict(), opt_state={})
 
         def validate() -> float:

@@ -159,6 +159,50 @@ def test_prepare_symbolic_regression_data_polar_matches_jax(crosswalk,
     np.testing.assert_allclose(got[1], ref[1], rtol=1e-4, atol=1e-6)
 
 
+def _zoo_model(name):
+    """``name`` at small widths: the JAX model with a flax tree
+    initialised here, its ``apply``, and the port's model on that tree."""
+    kw = dict(name=name, encoder_hidden_size=16, processor_hidden_size=16,
+              decoder_hidden_size=8, processor_hidden_layers=2, dropout=0.0)
+    jmodel = jax_build(JaxSpec(**kw))
+    params = jax.tree_util.tree_map(np.asarray, jmodel.init(
+        jax.random.PRNGKey(4), np.zeros((1, 6, 6), np.float32),
+        np.zeros((1, 10, 6), np.float32), np.ones((1, 7), np.float32)))
+    model = build_model(ModelSpec(**kw))
+    model.load_state_dict(params_from_flax(params), strict=True)
+    return params, jax.jit(jmodel.apply), model
+
+
+def test_prepare_symbolic_regression_data_pinnsf_m_matches_jax(crosswalk):
+    """The non-bottleneck branch: ``pinnsf_m``'s messages are processor
+    embeddings, and the labels are their columns by falling variance."""
+    params, apply_fn, model = _zoo_model("pinnsf_m")
+    jrows = crosswalk["rows"][False]
+    ref_f, ref_l = jsr.prepare_symbolic_regression_data(params, apply_fn,
+                                                         jrows)
+    got_f, got_l = sr.prepare_symbolic_regression_data(model,
+                                                        _port_rows(jrows))
+    assert got_l.shape == ref_l.shape and got_l.shape[1] == 16
+    assert got_f.shape[0] > 100
+    std = got_l.std(axis=0)
+    assert np.all(std[:-1] >= std[1:])
+    _close(got_f, ref_f, [1, 3, 4], "features")
+    _close(got_l, ref_l, [], "labels")
+
+
+def test_prepare_symbolic_regression_data_polar_pinnsf_pb_matches_jax(
+        crosswalk):
+    """The polar extraction with the per-edge polar bottleneck model."""
+    params, apply_fn, model = _zoo_model("pinnsf_pb")
+    jrows = crosswalk["rows"][True]
+    ref = jsr.prepare_symbolic_regression_data_polar(params, apply_fn, jrows)
+    got = sr.prepare_symbolic_regression_data_polar(model, _port_rows(jrows))
+    assert got[1].shape == ref[1].shape and got[1].shape[1] == 2
+    assert got[0].shape[0] > 100
+    _close(got[0], ref[0], [1, 3], "polar features")
+    np.testing.assert_allclose(got[1], ref[1], rtol=1e-4, atol=1e-6)
+
+
 def test_extraction_chunks_give_the_same_result(crosswalk, models,
                                                 monkeypatch):
     from piml_tpu_torch.sr import extract

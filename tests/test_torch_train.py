@@ -5,7 +5,9 @@ trainer.
 Tolerances:
 - views, batches: exact (the same gathers of the same numbers);
 - loss functions: rtol 1e-6 (float32, other summation orders);
-- one Adam step from identical gradients: params to 1e-6;
+- one Adam step from identical gradients: params to 1e-6; three steps
+  of the per-group finetune Adam against ``optax.multi_transform``: rtol
+  1e-6, atol 1e-8;
 - ``training_rollout_loss`` on 4 windows × 10 frames of the committed GC
   scene (337 agents, 4,094 obstacle points, pretrained ``pinnsf_bm``
   weights, dropout 0): loss to rtol 1e-4, gradients to relative L2 1e-3
@@ -238,9 +240,120 @@ def test_adam_steps_match_optax(rng):
 
 
 def test_optimizer_for_unported_finetunes_raises():
-    with pytest.raises(NotImplementedError):
-        make_optimizer(PIMLConfig(**{**CFG, "model": "pinnsf_res"}),
-                       [torch.nn.Parameter(torch.zeros(2))], finetune=True)
+    """The per-group finetune optimizer splits parameters by name: given
+    plain parameters it refuses, given the model it builds its groups."""
+    cfg = PIMLConfig(**{**CFG, "model": "pinnsf_res"})
+    with pytest.raises(ValueError):
+        make_optimizer(cfg, [torch.nn.Parameter(torch.zeros(2))],
+                       finetune=True)
+    model = build_finetune_model(ModelSpec.from_config(cfg))
+    opt = make_optimizer(cfg, model, finetune=True)
+    assert len(opt.param_groups) == 2
+
+
+TINY_W = dict(encoder_hidden_size=32, processor_hidden_size=32,
+              decoder_hidden_size=16, processor_hidden_layers=2,
+              res_hidden_layers=2)
+
+
+def _np_tree(tree):
+    return jax.tree_util.tree_map(np.asarray, tree)
+
+
+@pytest.mark.parametrize("name", ["base", "pinnsf_res"])
+def test_grouped_adam_matches_optax_multi_transform(rng, name):
+    """The ``base`` and ``pinnsf_res`` finetunes: the corrector group at
+    ``lr·ft_lr_decay2``, the pretrained one at ``lr·finetune_lr_decay``,
+    both with decay ``wd``; three steps from identical gradients against
+    the JAX package's ``optax.multi_transform``, to rtol 1e-6 and atol
+    1e-8 (about one float32 step of the initial weights, ~0.1: a weight
+    that the updates carry near zero keeps its old value's rounding)."""
+    from piml_tpu.train.trainer import make_optimizer as jax_make_optimizer
+
+    kw = dict(CFG, model=name, ft_lr_decay2=0.5, finetune_wd_aug=3.0,
+              weight_decay=1e-3, **TINY_W)
+    jcfg, cfg = JaxConfig(**kw), PIMLConfig(**kw)
+    jmodel = jax_build_finetune(JaxSpec.from_config(jcfg))
+    pf = rng.randn(3, 6, 6).astype(np.float32)
+    of = rng.randn(3, 10, 6).astype(np.float32)
+    sf = rng.randn(3, 7).astype(np.float32)
+    jp = jmodel.init(jax.random.PRNGKey(0), pf, of, sf)
+    model = build_finetune_model(ModelSpec.from_config(cfg))
+    model.load_state_dict(params_from_flax(_np_tree(jp)), strict=True)
+    opt = make_optimizer(cfg, model, finetune=True)
+    lr = cfg.learning_rate
+    assert [g["lr"] for g in opt.param_groups] == pytest.approx(
+        [lr * cfg.ft_lr_decay2, lr * cfg.finetune_lr_decay])
+    assert [g["weight_decay"] for g in opt.param_groups] == [1e-3, 1e-3]
+    corrector = {n for n, _ in model.named_parameters() if "corrector" in n}
+    assert corrector and len(corrector) < len(list(model.parameters()))
+    tx = jax_make_optimizer(jcfg, finetune=True)
+    state = tx.init(jp)
+
+    @jax.jit
+    def step(grads, state, params):
+        upd, state = tx.update(grads, state, params)
+        return optax.apply_updates(params, upd), state
+
+    for _ in range(3):
+        grads = jax.tree_util.tree_map(
+            lambda x: rng.randn(*x.shape).astype(np.float32), jp)
+        jp, state = step(grads, state, jp)
+        tgrads = params_from_flax(_np_tree(grads))
+        for n, p in model.named_parameters():
+            p.grad = tgrads[n].clone()
+        opt.step()
+    ref = params_from_flax(_np_tree(jp))
+    for n, p in model.named_parameters():
+        np.testing.assert_allclose(p.detach().numpy(), ref[n].numpy(),
+                                   rtol=1e-6, atol=1e-8, err_msg=n)
+
+
+@pytest.mark.parametrize("name", ["pinnsf2", "pinnsf_res"])
+def test_pointwise_loss_gradients_match_jax(rng, name):
+    """The pointwise loss and its gradients through ``pinnsf2``'s
+    learnable τ (``tau_delta``, with its weight decay left to the
+    optimizer) and through the ``pinnsf_res`` corrector, against
+    ``jax.value_and_grad``."""
+    from piml_tpu.train import Trainer as JaxTrainer
+    from piml_tpu.utils import MetricLogger as JaxLogger
+
+    kw = dict(CFG, model=name, reg_weight=1e-2, **TINY_W)
+    jtrainer = JaxTrainer(JaxConfig(**kw), JaxLogger(stream=open(os.devnull,
+                                                                 "w")))
+    trainer = Trainer(PIMLConfig(**kw), MetricLogger(
+        stream=open(os.devnull, "w")))
+    spec = ModelSpec.from_config(trainer.cfg)
+    if name == "pinnsf_res":      # the corrector is the finetune model's
+        jtrainer.model = jax_build_finetune(JaxSpec.from_config(jtrainer.cfg))
+        trainer.model = build_finetune_model(spec)
+    else:
+        trainer.model = build_model(spec)
+    batch = [rng.randn(48, 6, 6), rng.randn(48, 10, 6), rng.randn(48, 7),
+             rng.randn(48, 7)]
+    batch = [b.astype(np.float32) for b in batch]
+    jparams = _np_tree(jtrainer.model.init(jax.random.PRNGKey(1), *batch[:3]))
+    if name == "pinnsf2":
+        jparams["params"]["tau_delta"] = np.float32(0.3)
+
+    def loss_fn(p):
+        return jtrainer._pointwise_loss_terms(
+            p, *(jnp.asarray(b) for b in batch), jax.random.PRNGKey(0))
+
+    (ref, _), jgrads = jax.value_and_grad(loss_fn, has_aux=True)(jparams)
+    trainer.model.load_state_dict(params_from_flax(jparams), strict=True)
+    loss, _ = trainer._pointwise_loss_terms(*(torch.from_numpy(b)
+                                              for b in batch))
+    loss.backward()
+    assert float(loss.detach()) == pytest.approx(float(ref), rel=1e-5)
+    gref = params_from_flax(_np_tree(jgrads))
+    for n, p in trainer.model.named_parameters():
+        err = _rel_l2(p.grad.numpy(), gref[n].numpy())
+        assert err <= 1e-4, (n, err)
+    if name == "pinnsf2":
+        assert float(trainer.model.tau_delta.grad) != 0.0
+        assert float(trainer.model.tau_delta.grad) == pytest.approx(
+            float(gref["tau_delta"]), rel=1e-5)
 
 
 # ---------------------------------------------------------------------------
@@ -273,8 +386,12 @@ def test_dropout_masks_follow_the_generator():
 def test_finetune_registry():
     spec = ModelSpec.from_config(PIMLConfig(**CFG))
     assert type(build_finetune_model(spec)) is type(build_model(spec))
-    with pytest.raises(NotImplementedError):
-        build_finetune_model(dataclasses.replace(spec, name="pinnsf_res"))
+    res = build_finetune_model(dataclasses.replace(spec, name="pinnsf_res"))
+    assert res.corrector and not build_model(
+        dataclasses.replace(spec, name="pinnsf")).corrector
+    base = build_finetune_model(dataclasses.replace(spec, name="base"))
+    assert base.corrector_on and not build_model(
+        dataclasses.replace(spec, name="base")).corrector_on
     assert pretrain_model_name("pinnsf_res") == "pinnsf"
     assert pretrain_model_name("pinnsf_bm") == "pinnsf_bm"
 
@@ -408,3 +525,168 @@ def test_trainer_finetune_two_epochs_on_cpu(gc_windows, tmp_path):
     fresh.load_state_dict(load_params(checkpoint_path(cfg, True)))
     again = evaluate_rollouts(fresh, cfg, [valid], test_flag=False)
     assert again.loss == pytest.approx(state.best_val, rel=1e-6)
+
+
+def test_finetune_refuses_several_devices():
+    """The JAX package shards the finetune's channels over ``n_devices``;
+    the port has no channel data parallelism yet and says so."""
+    trainer = Trainer(PIMLConfig(**CFG, n_devices=2),
+                      MetricLogger(stream=open(os.devnull, "w")))
+    with pytest.raises(NotImplementedError, match="n_devices"):
+        trainer.finetune(train_batches=[])
+
+
+def test_model_spec_carries_compute_dtype():
+    """``--compute_dtype bfloat16`` reaches the model: its interaction
+    stacks compute in bfloat16 on float32 parameters."""
+    spec = ModelSpec.from_config(PIMLConfig(**{**CFG,
+                                               "compute_dtype": "bfloat16"}))
+    assert spec.compute_dtype == "bfloat16"
+    assert spec.nn_dtype is torch.bfloat16
+    model = build_model(spec)
+    assert model.ped_encoder.dtype is torch.bfloat16
+    assert model.collision_head.dtype is None      # JAX gives it none
+    assert all(p.dtype == torch.float32 for p in model.parameters())
+    plain = ModelSpec.from_config(PIMLConfig(**CFG))
+    assert plain.compute_dtype is None and plain.nn_dtype is None
+
+
+def _res_finetune(gc_windows, save_dir, epochs, resume):
+    cfg = PIMLConfig(**{**CFG, **TINY_W, "model": "pinnsf_res",
+                        "ft_lr_decay2": 0.5, "dropout": 0.5,
+                        "epochs": epochs, "resume": resume,
+                        "save_dir": str(save_dir), "exp_name": "res",
+                        "model_name_suffix": "r", "patience": 5,
+                        "ft_patience": 5})
+    ch = to_channeled(gc_windows["tdata"], 10, "slice").slice_channels(
+        [26, 38])
+    batches = channel_batches([ch], 2, np.random.RandomState(cfg.seed),
+                              shuffle=True)
+    valid = make_time_indexed(
+        cfg, Scene.from_arrays(_arrays(30, 60), device="cpu"))
+    logger = MetricLogger(stream=open(os.devnull, "w"))
+    state = Trainer(cfg, logger).finetune(batches, [valid])
+    return state, [r for r in logger.records if "epoch" in r]
+
+
+def test_resumed_pinnsf_res_finetune_is_bit_identical(gc_windows, tmp_path):
+    """The corrector finetune with its two Adam groups and live dropout:
+    one epoch, then a new trainer resuming to two, equals two epochs in
+    one go, bit for bit."""
+    whole, whole_logs = _res_finetune(gc_windows, tmp_path / "a", 2, False)
+    _res_finetune(gc_windows, tmp_path / "b", 1, True)
+    resumed, logs = _res_finetune(gc_windows, tmp_path / "b", 2, True)
+    assert [r["epoch"] for r in logs] == [1]
+
+    def strip(r):
+        return {k: v for k, v in r.items() if k != "time"}
+
+    assert strip(logs[0]) == strip([r for r in whole_logs
+                                    if r["epoch"] == 1][0])
+    assert math.isfinite(logs[0]["train_loss"])
+    assert resumed.best_val == whole.best_val
+    for name, p in whole.params.items():
+        assert torch.equal(resumed.params[name], p), name
+    groups = resumed.opt_state["param_groups"]
+    assert [g["lr"] for g in groups] == pytest.approx([2e-4 * 0.5,
+                                                       2e-4 * 0.02])
+
+
+def test_run_pinnsf_m_pretrain_matches_jax(tmp_path, monkeypatch):
+    """``exp.main.run`` on the default model, ``pinnsf_m`` (small widths),
+    against the JAX package's ``run`` on the same scene files from the
+    same initial weights, dropout 0: the two pretrain epochs' records to
+    rtol 1e-4, as ``test_train_pointwise_two_epochs_match_jax``.  The
+    port's pretrain and validation rows are the JAX package's: each
+    package's dataset orders the near-tied obstacle points of the scene's
+    walls in its own way (``tests/test_torch_pretrain.py`` holds the
+    datasets to each other with those ties named), which moves the
+    validation loss by ~1e-4 over two epochs."""
+    from piml_tpu.data import PointwiseDataset as JaxPointwiseDataset
+    from piml_tpu.exp import main as jax_main
+    from piml_tpu.train import Trainer as JaxTrainer
+    from piml_tpu.utils import MetricLogger as JaxLogger
+    from piml_tpu_torch.data import PointwiseData, PointwiseDataset
+    from piml_tpu_torch.exp import main as exp_main
+    from piml_tpu_torch.scene import crop
+
+    src = Scene.load(SCENE, device="cpu")
+    lines = []
+    for split, (a, b) in dict(train=(0, 80), valid=(80, 120),
+                              test=(120, 160)).items():
+        path = str(tmp_path / f"{split}.npy")
+        crop(src, a, b, list(range(40))).save(path)
+        lines.append(f"{split}:\n  - {path}\n")
+    (tmp_path / "data.yaml").write_text("".join(lines))
+    kw = dict(model="pinnsf_m", dataset_name="gc2344", skip_frames=5,
+              valid_steps=5, dropout=0.0, batch_size=64, epochs=2,
+              learning_rate=2e-4, weight_decay=1e-6, reg_weight=1e-2,
+              collision_pred_weight=5e-2, patience=5, ft_patience=5,
+              data_config=str(tmp_path / "data.yaml"), exp_name="m",
+              model_name_suffix="m", **TINY_W)
+
+    class Records(JaxLogger):
+        def __init__(self):
+            super().__init__(stream=open(os.devnull, "w"))
+            self.records = []
+
+        def log(self, **metrics):
+            self.records.append(metrics)
+
+    # the port starts from the weights the JAX run initialised
+    init = {}
+    jax_init = JaxTrainer.init_params
+
+    def keep(self, sample):
+        init["params"] = jax_init(self, sample)
+        return init["params"]
+
+    monkeypatch.setattr(JaxTrainer, "init_params", keep)
+    jax_build_dataset = JaxPointwiseDataset.build_dataset
+
+    def keep_rows(self, cfg):
+        init["rows"] = self
+        return jax_build_dataset(self, cfg)
+
+    monkeypatch.setattr(JaxPointwiseDataset, "build_dataset", keep_rows)
+    jlog = Records()
+    ref = jax_main.run(JaxConfig(**kw, save_dir=str(tmp_path / "jax")),
+                       jlog)
+    port_init = Trainer.init_params
+
+    def load(self, sample):
+        port_init(self, sample)
+        self.model.load_state_dict(
+            params_from_flax(_np_tree(init["params"])), strict=True)
+        return self.model.state_dict()
+
+    monkeypatch.setattr(Trainer, "init_params", load)
+    build_dataset = PointwiseDataset.build_dataset
+
+    def same_rows(self, cfg):
+        cfg = build_dataset(self, cfg)
+        for split in ("train_data", "valid_data"):
+            ref = getattr(init["rows"], split)
+            setattr(self, split, PointwiseData(
+                **{k: torch.from_numpy(np.array(getattr(ref, k)))
+                   for k in ("ped_features", "obs_features",
+                             "self_features", "labels")},
+                meta_data=dict(ref.meta_data)))
+        return cfg
+
+    monkeypatch.setattr(PointwiseDataset, "build_dataset", same_rows)
+    log = MetricLogger(stream=open(os.devnull, "w"))
+    got = exp_main.run(PIMLConfig(**kw, save_dir=str(tmp_path / "t")), log,
+                       device="cpu")
+
+    def epochs(records, key):
+        return [r[key] for r in records if key in r and "epoch" in r]
+
+    for key in ("train_loss", "train_mse", "val_loss"):
+        assert len(epochs(log.records, key)) == 2, key
+        np.testing.assert_allclose(epochs(log.records, key),
+                                   epochs(jlog.records, key), rtol=1e-4,
+                                   err_msg=key)
+    assert got["pretrain_val"] == pytest.approx(ref["pretrain_val"],
+                                                rel=1e-4)
+    assert math.isfinite(got["pretrain_test_mae"])

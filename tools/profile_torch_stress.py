@@ -1,13 +1,17 @@
 #!/usr/bin/env python3
 """Where a dense-stress frame of the PyTorch port spends its time (GPU).
 
-    python3 tools/profile_torch_stress.py [--frames 10]
+    python3 tools/profile_torch_stress.py [--frames 10] [--model pinnsf_m]
+        [--compute_dtype bfloat16]
     python3 tools/profile_torch_stress.py --train [--steps 2]
     python3 tools/profile_torch_stress.py --metrics [--steps 20]
     python3 tools/profile_torch_stress.py --gen [--frames 10]
 
 Builds the dense-stress scene of ``chip_smoke.py`` (12,685 agents, 4,096
-obstacles, trained ``pinnsf_bm``), warms up, then traces ``--frames``
+obstacles, trained ``pinnsf_bm``; ``--model`` another zoo name with
+seeded weights at the paper's widths and ``pred_acc`` clamped to ±5, as
+``chip_smoke.Clamped``; ``--compute_dtype bfloat16`` its interaction
+MLPs in bfloat16), warms up, then traces ``--frames``
 rollout frames with ``torch.profiler`` for each selection route (K2 with
 K1 fallback; K1 alone).  Prints per route: wall ms/frame of the frame loop, device
 busy ms/frame (kernel time on the single stream over the traced span,
@@ -239,9 +243,32 @@ def generators(frames: int, top: int) -> None:
                             for us, k, c in rows[:top]]}))
 
 
+def stress_model(name: str, compute_dtype: str, dev):
+    """The dense-stress model: the trained ``pinnsf_bm`` weights, or
+    seeded weights of ``name`` behind ``chip_smoke.Clamped``."""
+    import torch
+
+    import chip_smoke
+    from piml_tpu_torch.config import PIMLConfig
+    from piml_tpu_torch.models import ModelSpec, build_model, load_fixture
+
+    spec = ModelSpec.from_config(PIMLConfig(
+        model=name, dataset_name="gc2344", dropout=0.0,
+        compute_dtype=compute_dtype))
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(chip_smoke.SEED)
+        model = build_model(spec)
+    if name == "pinnsf_bm":
+        model.load_state_dict(load_fixture())
+        return model.to(dev).eval()
+    return chip_smoke.Clamped(model.to(dev).eval())
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--frames", type=int, default=10)
+    ap.add_argument("--model", default="pinnsf_bm")
+    ap.add_argument("--compute_dtype", default="")
     ap.add_argument("--top", type=int, default=12)
     ap.add_argument("--train", action="store_true")
     ap.add_argument("--metrics", action="store_true")
@@ -269,7 +296,7 @@ def main():
 
     dev = torch.device("cuda:0")
     sc = chip_smoke.stress_scene(dev)
-    _, model = chip_smoke.trained_model(dev)
+    model = stress_model(args.model, args.compute_dtype, dev)
     for label, ncfg in (("k2_banded", NeighborConfig()),
                         ("k1_dense", NeighborConfig(use_grid_topk=False))):
         chip_smoke.stress_rollout(model, sc, ncfg, 3)            # warm-up
@@ -281,7 +308,9 @@ def main():
         busy_us, rows = device_rows(prof)
         per_frame = lambda us: us / 1e3 / args.frames
         print(json.dumps({
-            "route": label, "frames": args.frames,
+            "route": label, "model": args.model,
+            "compute_dtype": args.compute_dtype or "float32",
+            "frames": args.frames,
             "wall_ms_per_frame_profiled": wall / args.frames * 1e3,
             "device_busy_ms_per_frame": per_frame(busy_us),
             "device_idle_share": 1.0 - busy_us / 1e6 / total,
