@@ -29,9 +29,13 @@ Phases, one line each; any failure raises and exits non-zero:
    frames, through the kernels and through the plain versions — bitwise
    equal;
 7. the GC window (``repro_work/gc_sf_repro.npy``): ``make_time_indexed``
-   and ``evaluate_rollouts`` (with OT and MMD) on the GPU, and a 60-frame
-   slice on the GPU against the same slice on the CPU (MAE, OT, MMD and
-   the rest to rtol 1e-4);
+   and ``evaluate_rollouts`` (with OT and MMD) on the GPU; the whole
+   750-frame window against the JAX package's numbers
+   (``piml_tpu_torch/fixtures/gc_window_jax.npz``, see
+   ``gc_window_vs_fixture``: each metric and each recorded frame's median
+   position gap within three times the JAX package's own spread under
+   1e-4 m moves of the scene); and a 60-frame slice on the GPU against the
+   same slice on the CPU (MAE, OT, MMD and the rest to rtol 1e-4);
 8. K2 with its channel axis on the stress scene at C = 2 (the second
    channel a seeded jitter of the first), agent and obstacle pass: the
    batched launch bitwise equal to its plain version and to two
@@ -113,19 +117,37 @@ Phases, one line each; any failure raises and exits non-zero:
     d. phase 9's dense-N step with a ``pinnsf_m`` finetune model, 2 Adam
        steps: s/step, peak memory, channel-batched K2 launches, finite
        losses.
+16. the data and experiment layers, on phase 13's cut scenes:
+    a. ``RatioSplitDataset``, ``SceneListSplitDataset`` and
+       ``OnlyTrainingDataset`` on the card against the CPU
+       (``rows_gap``), ``Scene.pad_agents`` / ``pad_time`` bit for bit;
+    b. ``run_staged_experiment`` (phase 13's hyper-parameters, 2 epochs)
+       as ``pretrain`` → ``finetune`` → ``evaluate`` on one state file
+       against one ``all`` call on another (``staged_experiment``);
+    c. ``exp.grid``: a two-entry YAML grid of 1-epoch
+       ``python3 -m piml_tpu_torch.exp.main`` runs through ``task_queue``,
+       in subprocesses, both exiting 0; wall seconds, rows/s, peak memory;
+17. the one-chip scale ceiling (``scale_ceiling``): 1,048,576 agents, the
+    trained ``pinnsf_bm``, 3 frames after a warm-up frame: ms/frame, peak
+    memory, K2 launches, fallbacks and half-grid calls a frame, no K1
+    launch for agents; the half-grid K2 pass bitwise against its plain
+    version on 16 tiles and against K1 on 4,096 sampled rows; one frame
+    through the old route (K1 as the fallback).
 
 The line before the last holds the kernels' record as JSON (per kernel
 and per pass: ms, plain ms, ``bound_ms``, ``bound_by``, ``share`` of the
 bound, ``library_ms`` null: no single PyTorch call computes a
 field-of-view top-k), and the last line is
 ``{"ok": true, "device": {...}}``.  Launch counts are zeroed just
-before each main path (phases 4-5, phase 9, phases 15c and 15d) and read
-just after it: they count only the main paths' launches.  Phases 12-14 run no kernel of the
+before each main path (phases 4-5, phase 9, phases 15c and 15d, phase
+17) and read just after it: they count only the main paths' launches.  Phases 12-14 run no kernel of the
 port: dense-N OT and MMD are torch ops, and the CLI pipeline's and the
 discovery loop's GC scenes (at most ~340 agents, 4,094 obstacle points)
 stay below the 2^21 pair gate that routes the feature pass to K1 / K2;
-phase 14 reads both counts after its run to show it.  It needs no network
-and starts no process besides ``nvidia-smi`` and the ``nvcc`` builds.
+phase 14 reads both counts after its run to show it; phase 16's runs
+are below that gate too.  It needs no network and starts no process
+besides ``nvidia-smi``, the ``nvcc`` builds and phase 16's two CLI runs,
+each of which it waits for.
 """
 
 import contextlib
@@ -866,6 +888,66 @@ def cli_pipeline(dev, tmp):
     return rec
 
 
+GC_FIXTURE = os.path.join(ROOT, "piml_tpu_torch", "fixtures",
+                          "gc_window_jax.npz")
+# the GC window is held to three times the JAX package's own spread under
+# 1e-4 m moves of the scene (tests/test_torch_engine.py gives the numbers)
+SPREAD_FACTOR = 3
+
+
+def gc_window_vs_fixture(model, cfg, data, metrics, scene_path):
+    """Phase 7's whole 750-frame window against the JAX package's numbers
+    (``piml_tpu_torch/fixtures/gc_window_jax.npz``, written by
+    ``tools/make_gc_window_fixture.py``): each metric's relative gap within
+    ``SPREAD_FACTOR`` times the JAX package's own largest deviation under
+    1e-4 m moves of the scene's positions, the median position gap at each
+    recorded frame likewise, and the first recorded frame (60) within
+    1e-3 m for every agent (the CPU path is within 1e-4 m there,
+    ``tests/test_torch_engine.py``; the card's matmuls round in their own
+    order)."""
+    import hashlib
+
+    import numpy as np
+
+    from piml_tpu_torch.engine import engine_config, eval_rollout
+
+    fx = np.load(GC_FIXTURE)
+    with open(scene_path, "rb") as f:
+        if hashlib.sha256(f.read()).hexdigest() != str(fx["scene_sha256"]):
+            raise AssertionError("GC fixture: the scene file changed")
+    gaps, limits = {}, {}
+    for name, ref, spread in zip(fx["metric_names"], fx["metrics"],
+                                 fx["spread"]):
+        name = str(name)
+        gaps[name] = abs(getattr(metrics, name) - ref) / abs(ref)
+        limits[name] = SPREAD_FACTOR * float(spread)
+    res = eval_rollout(model, engine_config(cfg, retire=True,
+                                            track_collisions=False,
+                                            track_labels=False),
+                       data, cfg.skip_frames)
+    frames = {}
+    for i, frame in enumerate(fx["frames"].tolist()):
+        pos = res.position[frame].cpu().numpy()
+        ref = fx["position"][i]
+        both = np.isfinite(pos).all(-1) & np.isfinite(ref).all(-1)
+        dist = np.linalg.norm(pos[both] - ref[both], axis=-1)
+        frames[frame] = dict(
+            median_m=float(np.median(dist)), max_m=float(dist.max()),
+            limit_median_m=SPREAD_FACTOR * float(fx["spread_median"][i]),
+            agents=int(both.sum()),
+            masks_equal=bool((res.mask_p[frame].cpu().numpy()
+                              == fx["mask"][i]).all()))
+    say("gc_window_vs_jax_fixture", relative_gaps=gaps, limits=limits,
+        positions=frames, spread_factor=SPREAD_FACTOR)
+    bad = [k for k in gaps if not gaps[k] <= limits[k]]
+    bad += [f for f, r in frames.items()
+            if not r["median_m"] <= r["limit_median_m"]]
+    first = frames[int(fx["frames"][0])]
+    if bad or not first["max_m"] <= 1e-3 or not first["masks_equal"]:
+        raise AssertionError(f"GC window vs the JAX fixture: {bad}, first "
+                             f"frame {first}")
+
+
 # what a v2.2 file carries; the decoder re-derives the waypoint table,
 # dest_num and dest_idx from the destination track
 SCENE_FIELDS = ("position", "velocity", "acceleration", "destination",
@@ -1383,6 +1465,388 @@ def zoo_dense_step(dev):
     return counts
 
 
+# the data and experiment layers (phase 16): the 150-frame scenes of
+# phase 13's cut, the staged runner's epochs and the grid's two entries
+STAGED_EPOCHS = 2
+GRID_LEARNING_RATES = [2e-4, 1e-4]
+# the one-chip scale ceiling (phase 17): tools/rollout_scaling.py:29-60
+SCALE_AGENTS = 1_048_576
+SCALE_FRAMES = 3
+SCALE_TILES = 16            # tiles of the half-grid pass held to its plain
+SCALE_SAMPLE_ROWS = 4096    # rows of the half-grid selection held to K1
+
+
+def rows_gap(got, ref, what):
+    """Pointwise rows built on the card against the same rows built on the
+    CPU: the same count; self features and labels to rtol 1e-4 / atol
+    1e-5; neighbour and obstacle features by each row's sum over its slots
+    (unchanged when tied neighbours trade places) to atol 1e-4.  Rows
+    outside that (a neighbour that ties with the k-th one, or sits at the
+    distance threshold, kept on one side only) are counted; at most 0.5 %
+    may differ.  Returns that count."""
+    import torch
+
+    if len(got) != len(ref) or len(ref) == 0:
+        raise AssertionError(f"{what}: {len(got)} rows vs {len(ref)}")
+    for key in ("self_features", "labels"):
+        if not torch.allclose(getattr(got, key).cpu(), getattr(ref, key),
+                              rtol=1e-4, atol=1e-5):
+            raise AssertionError(f"{what} {key}: card vs CPU")
+    tied = torch.zeros(len(ref), dtype=torch.bool)
+    for key in ("ped_features", "obs_features"):
+        a = getattr(got, key).cpu().sum(dim=-2)
+        b = getattr(ref, key).sum(dim=-2)
+        tied |= ((a - b).abs() > 1e-4).any(dim=-1)
+    if int(tied.sum()) > 0.005 * len(ref):
+        raise AssertionError(f"{what}: {int(tied.sum())} of {len(ref)} rows "
+                             "differ")
+    return int(tied.sum())
+
+
+def data_layers(dev, tmp):
+    """Phase 16a: the split orchestrators and ``Scene`` padding on the card
+    against the CPU, on the 150-frame scenes of phase 13's cut:
+    ``RatioSplitDataset`` on one scene, ``SceneListSplitDataset`` on
+    three, ``OnlyTrainingDataset`` with channeled validation windows
+    (``finetune_flag``); row counts, test frames and the ratio split's
+    frame indices equal, rows by ``rows_gap``; the padded scene bit for
+    bit."""
+    import torch
+
+    from piml_tpu_torch.config import PIMLConfig
+    from piml_tpu_torch.data import (OnlyTrainingDataset, RatioSplitDataset,
+                                     SceneListSplitDataset,
+                                     split_train_val_test)
+    from piml_tpu_torch.scene import Scene
+
+    configs = cut_cli_scenes(tmp)
+    path = {f"{name}_{split}": os.path.join(tmp, f"{name}_{split}.npy")
+            for name in ("pretrain", "finetune") for split in CLI_SPLITS}
+    cfg = PIMLConfig(**CLI_CFG)
+    only_yaml = os.path.join(tmp, "only.yaml")
+    with open(only_yaml, "w") as f:
+        f.write(f"train:\n  - {path['finetune_valid']}\n"
+                f"valid:\n  - {path['pretrain_valid']}\n"
+                f"test:\n  - {path['pretrain_test']}\n")
+    cases = {
+        "ratio": (RatioSplitDataset, path["pretrain_test"], cfg),
+        "scene_list": (SceneListSplitDataset,
+                       [path["pretrain_valid"], path["pretrain_test"],
+                        path["finetune_test"]], cfg),
+        "only_training": (OnlyTrainingDataset, only_yaml,
+                          cfg.replace(finetune_flag=True)),
+    }
+    rec, cards = {}, {}
+    for name, (cls, arg, c) in cases.items():
+        built, secs = [], []
+        for device in (dev, "cpu"):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ds = cls(device=device)
+            ds.load_data(arg)
+            ds.build_dataset(c)
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+            built.append(ds)
+        card, cpu = built
+        cards[name] = card
+        tied = {"train": rows_gap(card.train_data, cpu.train_data,
+                                  f"{name} train")}
+        if name == "only_training":
+            windows = [(a.num_channels, b.num_channels)
+                       for a, b in zip(card.valid_data, cpu.valid_data)]
+            if not windows or any(a != b for a, b in windows):
+                raise AssertionError(f"{name}: valid windows {windows}")
+        else:
+            tied["valid"] = rows_gap(card.valid_data, cpu.valid_data,
+                                     f"{name} valid")
+        frames = [t.num_frames for t in card.test_data]
+        if frames != [t.num_frames for t in cpu.test_data] or not frames:
+            raise AssertionError(f"{name}: test frames {frames}")
+        for a, b in zip(card.test_data, cpu.test_data):
+            if not torch.allclose(a.self_features.cpu(), b.self_features,
+                                  rtol=1e-4, atol=1e-5):
+                raise AssertionError(f"{name}: test views differ")
+        rec[name] = dict(train_rows=len(card.train_data), test_frames=frames,
+                         rows_with_tied_slots=tied, card_s=secs[0],
+                         cpu_s=secs[1])
+    ratio = cards["ratio"]
+    n = ratio.scene.num_steps
+    idx = split_train_val_test(n, cfg.train_ratio, cfg.val_ratio,
+                               cfg.test_ratio, cfg.seed, shuffle=cfg.shuffle)
+    if ratio.test_data[0].num_frames != len(idx[2]):
+        raise AssertionError("ratio split: the test tail is not the split's")
+    scene = Scene.load(path["pretrain_test"], device=dev)
+    cpu_scene = Scene.load(path["pretrain_test"], device="cpu")
+    for label, pad in (("pad_agents", lambda x: x.pad_agents(
+            x.num_pedestrians + 29)), ("pad_time", lambda x: x.pad_time(
+                x.num_steps + 17))):
+        a, b = pad(scene), pad(cpu_scene)
+        for key in SCENE_FIELDS + ("waypoints", "dest_idx", "dest_num"):
+            if not torch.equal(torch.nan_to_num(getattr(a, key).cpu()),
+                               torch.nan_to_num(getattr(b, key))):
+                raise AssertionError(f"{label} {key}: card vs CPU")
+        rec[label] = list(a.position.shape)
+    rec["ratio_split_sizes"] = [len(x) for x in idx]
+    say("data_layers", config=configs["pretrain"].rsplit(os.sep, 1)[-1],
+        bitwise_padding=True, **rec)
+    return configs
+
+
+def staged_experiment(dev, tmp, configs):
+    """Phase 16b: ``run_staged_experiment`` with phase 13's
+    hyper-parameters (``pinnsf_bm`` at the paper's widths,
+    ``STAGED_EPOCHS`` epochs) as three calls, ``pretrain`` → ``finetune``
+    → ``evaluate``, on one state file, then one ``all`` call on another.
+    The pretrain's numbers and the pretrained model's test metrics must be
+    the same bit for bit, as phase 13's resumed rerun; the finetune's
+    gradients gather neighbour rows by indexing, whose backward on CUDA
+    accumulates in no fixed order, so the finetune's numbers are held to
+    rtol 1e-4 (the CPU path's tolerance against the JAX package) and
+    whether they came out bit for bit is printed."""
+    import io
+    import re
+
+    import torch
+
+    from piml_tpu_torch.config import PIMLConfig
+    from piml_tpu_torch.exp.experiment import run_staged_experiment
+    from piml_tpu_torch.train.trainer import MetricLogger
+
+    base = PIMLConfig(**CLI_CFG, epochs=STAGED_EPOCHS, finetune_flag=True,
+                      data_config=configs["pretrain"],
+                      ft_data_config=configs["finetune"], exp_name="staged",
+                      model_name_suffix="smoke")
+    torch.cuda.reset_peak_memory_stats(dev)
+    runs, walls, text = {}, {}, io.StringIO()
+    for label, stages in (("staged", ("pretrain", "finetune", "evaluate")),
+                          ("all", ("all",))):
+        cfg = base.replace(save_dir=os.path.join(tmp, label))
+        state = os.path.join(tmp, f"{label}.json")
+        for stage in stages:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            runs[label] = run_staged_experiment(
+                cfg, stage, state, MetricLogger(stream=text), device=dev)
+            torch.cuda.synchronize()
+            walls[f"{label}_{stage}"] = time.perf_counter() - t0
+    staged, whole = runs["staged"], runs["all"]
+    if set(staged) != set(whole):
+        raise AssertionError(f"staged {sorted(staged)} vs all "
+                             f"{sorted(whole)}")
+    exact = ("pretrain", "gt_test", "pretrain_test")
+    bitwise, worst = {}, 0.0
+    for section in exact + ("finetune", "finetune_test"):
+        a, b = staged[section], whole[section]
+        keys = [k for k in a if not k.endswith("wall_s")]
+        bitwise[section] = all(a[k] == b[k] for k in keys)
+        for k in keys:
+            if not math.isfinite(a[k]):
+                raise AssertionError(f"staged {section} {k}: {a[k]}")
+            gap = abs(a[k] - b[k]) / max(abs(b[k]), 1e-12)
+            if section not in exact:
+                worst = max(worst, gap)
+            if gap > (0.0 if section in exact else 1e-4):
+                raise AssertionError(f"staged vs all {section} {k}: "
+                                     f"{a[k]} vs {b[k]}")
+    rows = int(re.findall(r"pretrain rows: train=(\d+)", text.getvalue())[0])
+    pre_s = staged["pretrain"]["wall_s"]
+    say("staged_experiment", epochs=STAGED_EPOCHS, stage_wall_s=walls,
+        pretrain_rows=rows, pretrain_rows_per_s=rows * STAGED_EPOCHS / pre_s,
+        finetune_wall_s=staged["finetune"]["wall_s"],
+        bitwise_equal=bitwise, finetune_max_rel_gap=worst,
+        max_memory_allocated_bytes=torch.cuda.max_memory_allocated(dev),
+        finetune_test=staged["finetune_test"],
+        pretrain_test=staged["pretrain_test"])
+
+
+def grid_sweep(dev, tmp, configs):
+    """Phase 16c: ``exp.grid.yaml_to_grid_params`` expands a YAML of phase
+    13's hyper-parameters with two learning rates into two commands of
+    ``python3 -m piml_tpu_torch.exp.main`` (1 epoch, finetune on), and
+    ``task_queue`` runs them in subprocesses: both must exit 0 and log
+    their epochs."""
+    import io
+
+    import yaml
+
+    from piml_tpu_torch.exp.grid import task_queue, yaml_to_grid_params
+
+    jsonl = os.path.join(tmp, "grid.jsonl")
+    spec = {k: v for k, v in CLI_CFG.items() if k != "learning_rate"}
+    spec.update(epochs=1, finetune_flag=1, data_config=configs["pretrain"],
+                ft_data_config=configs["finetune"],
+                save_dir=os.path.join(tmp, "grid"), exp_name="grid",
+                jsonl_log=jsonl, learning_rate=GRID_LEARNING_RATES)
+    grid_yaml = os.path.join(tmp, "grid.yaml")
+    with open(grid_yaml, "w") as f:
+        yaml.safe_dump(spec, f)
+    cmds = yaml_to_grid_params(grid_yaml)
+    logs = [os.path.join(tmp, f"grid_{i}.log") for i in range(len(cmds))]
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        ok = task_queue([f"{c} > {log} 2>&1" for c, log in zip(cmds, logs)],
+                        num_retries=1, interval=0.0, env=env)
+    wall = time.perf_counter() - t0
+    with open(jsonl) as f:
+        recs = [json.loads(line) for line in f]
+    pre = [r for r in recs if "acc_pred" in r]
+    tests = [r for r in recs if "test_ot" in r]
+    if ok != 1 or len(cmds) != 2 or len(pre) != 2 or len(tests) != 4:
+        tails = []
+        for log in logs:
+            if os.path.exists(log):
+                with open(log) as f:
+                    tails.append(f.read()[-2000:])
+        raise AssertionError(f"grid: task_queue gave {ok}, {len(cmds)} "
+                             f"commands, {len(pre)} pretrain epochs, "
+                             f"{len(tests)} tests; logs: {tails}")
+    say("grid_sweep", commands=len(cmds), exit_ok=True, wall_s=wall,
+        learning_rates=GRID_LEARNING_RATES,
+        test_mae=[r["test_mae"] for r in tests])
+
+
+def scale_ceiling(dev, model):
+    """Phase 17: the one-chip scale ceiling (``tools/rollout_scaling.py``
+    :29-60, ``bench.py:689``): ``SCALE_AGENTS`` agents uniform over
+    ``200 · sqrt(N / 12,685)`` m, 4,096 obstacle points, the trained
+    ``pinnsf_bm``, ``retire_on_arrival``, no contact counts;
+    ``SCALE_FRAMES`` frames after one warm-up frame.  Past
+    ``DENSE_COLUMN_CEILING`` the agent pass's fallback is the half-grid K2
+    pass, so K1 must not launch for agents.  Then: the half-grid pass's
+    kernel against its plain version on ``SCALE_TILES`` contiguous tiles
+    (the plain version of all 8,192 tiles would build multi-GB
+    ``(T, W)`` temporaries; it takes the tiles' window starts and rows, so
+    it is the same function); its selection against K1 on the first
+    ``SCALE_SAMPLE_ROWS`` agents over all columns (equal on every
+    in-threshold slot where the pass is exact); and one frame through the
+    old route, K1 as the fallback.  Returns the launch counts and the
+    half-grid pass's record."""
+    import torch
+
+    from piml_tpu_torch.engine import (EngineConfig, SpawnFrame, init_state,
+                                       rollout)
+    from piml_tpu_torch.ops import banded, pairwise
+    from piml_tpu_torch.physics import (NeighborConfig, features,
+                                        heading_direction, relative_features)
+
+    n = SCALE_AGENTS
+    extent = 200.0 * math.sqrt(n / N_AGENTS)
+    g = torch.Generator().manual_seed(SEED + 4)
+    pos = (torch.rand((n, 2), generator=g) * extent).to(dev)
+    vel = torch.randn((n, 2), generator=g).to(dev)
+    wp = (torch.rand((1, n, 2), generator=g) * extent).to(dev)
+    obstacles = (torch.rand((N_OBSTACLES, 2), generator=g) * extent).to(dev)
+    acc = torch.zeros_like(pos)
+    ds = torch.full((n, 1), 1.34, device=dev)
+    ncfg = NeighborConfig()
+    ecfg = EngineConfig(neighbor=ncfg, time_unit=0.08, lagged=True,
+                        retire_on_arrival=True)
+    heading = heading_direction(vel, time_axis=False)
+    with torch.inference_mode():
+        pf, of, df = relative_features(pos, vel, acc, wp[0], obstacles, ncfg)
+    state = init_state(pos, vel, acc, wp[0],
+                       torch.zeros(n, dtype=torch.int32, device=dev), pf, of,
+                       torch.cat([df, vel, acc, ds], dim=-1))
+    dest_num = torch.ones(n, dtype=torch.int32, device=dev)
+
+    def frames(count):
+        z2 = torch.zeros((count, n, 2), device=dev)
+        spawns = SpawnFrame(
+            new=torch.zeros((count, n), device=dev), p=z2, v=z2, a=z2,
+            dest=z2, dest_idx=torch.zeros((count, n), dtype=torch.int32,
+                                          device=dev), hist_v=z2)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, outs = rollout(model, ecfg, state, spawns, wp, dest_num,
+                          obstacles, ds)
+        torch.cuda.synchronize()
+        return outs, time.perf_counter() - t0
+
+    frames(1)                                   # warm-up
+    k = banded.KERNEL
+    pairwise.KERNEL.launches = 0
+    k.launches = k.fallbacks = k.wide_calls = k.wide_relaxed = 0
+    torch.cuda.reset_peak_memory_stats(dev)
+    outs, wall = frames(SCALE_FRAMES)
+    counts = dict(k2=k.launches, k2_fallbacks=k.fallbacks,
+                  wide_calls=k.wide_calls, wide_relaxed=k.wide_relaxed,
+                  k1=pairwise.KERNEL.launches)
+    peak = torch.cuda.max_memory_allocated(dev)
+    live = outs.mask == 1
+    # every agent-pass fallback is a half-grid call, so the obstacle pass
+    # fell back (k2_fallbacks - wide_calls) times, one K1 launch each
+    k1_agents = counts["k1"] - (counts["k2_fallbacks"] - counts["wide_calls"])
+    say("scale_ceiling", agents=n, extent_m=extent, obstacles=N_OBSTACLES,
+        frames=SCALE_FRAMES, ms_per_frame=wall / SCALE_FRAMES * 1e3,
+        max_memory_allocated_bytes=peak,
+        per_frame={key: v / SCALE_FRAMES for key, v in counts.items()},
+        k1_agent_launches=k1_agents, live_final=int(live[-1].sum()))
+    if not torch.isfinite(outs.p[live]).all():
+        raise AssertionError("scale ceiling: non-finite live positions")
+    # the fine grid's windows overflow on a few tiles of this scene, so the
+    # agent pass falls back to the half grid on every frame
+    if counts["k2"] == 0 or counts["wide_calls"] == 0 or k1_agents != 0:
+        raise AssertionError(f"scale ceiling: launches {counts}")
+
+    # the half-grid pass: kernel against its plain version on a run of
+    # tiles, its time beside its bound, its selection against K1
+    args, (d_w, i_w) = banded_args(
+        features._banded_wide_fallback, pos, heading, ncfg.topk_ped,
+        ncfg.sight_angle_ped, ncfg.dist_threshold_ped)
+    exact = k.wide_relaxed == counts["wide_relaxed"]
+    # single-frame launches carry a channel axis of one
+    ws, geo, rows = args[:3]
+    t0 = ws.shape[-1] // 2
+    t1 = t0 + SCALE_TILES
+    rows_sl = slice(t0 * banded.TILE_N, t1 * banded.TILE_N)
+    sub = (ws[:, t0:t1].contiguous(), geo,
+           rows[:, rows_sl].contiguous()) + tuple(args[3:])
+    full = banded.banded_topk_cuda(*args)
+    part = banded.banded_topk_plain(*sub[:-1])
+    torch.cuda.synchronize()
+    assert_equal(full[0][:, rows_sl], part[0], "half-grid K2 dist")
+    assert_equal(full[1][:, rows_sl], part[1], "half-grid K2 idx")
+    ms = queued_ms(lambda: banded.banded_topk_cuda(*args), 10)
+    ms_sub = queued_ms(lambda: banded.banded_topk_cuda(*sub), 10)
+    plain_sub = queued_ms(lambda: banded.banded_topk_plain(*sub[:-1]), 2)
+    # the plain version runs on the compared tiles only, so its time is
+    # that run's, beside the kernel's on the same tiles
+    bound = k2_bound(args)
+    record = dict(ms=ms, **bound, share=bound["bound_ms"] / ms,
+                  grid_dim=args[5], window=args[4], tiles=ws.shape[-1],
+                  compared_tiles=[t0, t1], ms_compared_tiles=ms_sub,
+                  plain_ms_compared_tiles=plain_sub, exact=exact,
+                  max_abs_err=max_abs_err(full[0][:, rows_sl], part[0]))
+    m = SCALE_SAMPLE_ROWS
+    thr = pairwise.cos_threshold(ncfg.sight_angle_ped)
+    k1_rows = pairwise.pack_rows(pos, heading)[:m].contiguous()
+    d1, i1 = pairwise.pairwise_topk_cuda(k1_rows, pairwise.pack_cols(pos),
+                                         ncfg.topk_ped, thr, True)
+    torch.cuda.synchronize()
+    in_thr = d1 <= ncfg.dist_threshold_ped
+    same_slots = torch.equal(d_w[:m] <= ncfg.dist_threshold_ped, in_thr) \
+        and torch.equal(i_w[:m][in_thr], i1[in_thr]) \
+        and torch.equal(d_w[:m][in_thr], d1[in_thr])
+    differing = int(((d_w[:m] != d1) | (i_w[:m] != i1)).any(dim=1).sum())
+    if exact and not same_slots:
+        raise AssertionError("half-grid pass: in-threshold slots differ "
+                             "from K1's")
+
+    # the old route: K1 as the agent pass's fallback at every N
+    with mock.patch.object(features, "DENSE_COLUMN_CEILING", 1 << 62):
+        pairwise.KERNEL.launches = 0
+        _, old_wall = frames(1)
+        old_k1 = pairwise.KERNEL.launches
+    say("scale_ceiling_half_grid", bitwise_equal_plain_on_tiles=True,
+        in_threshold_slots_equal_k1=same_slots, sample_rows=m,
+        rows_differing_from_k1_any_slot=differing, **record)
+    say("scale_ceiling_old_route", ms_per_frame=old_wall * 1e3,
+        k1_launches=old_k1, new_route_ms_per_frame=wall / SCALE_FRAMES * 1e3)
+    return dict(counts, half_grid=record)
+
+
 def main():
     import torch
 
@@ -1568,6 +2032,7 @@ def main():
                      ot=metrics.ot, mmd=metrics.mmd,
                      collision=metrics.collision,
                      hard_collision=metrics.hard_collision))
+    gc_window_vs_fixture(model, cfg, data, metrics, scene_path)
 
     # the same 60-frame slice on the card and on the CPU (the CPU side is
     # the path the tests hold to the JAX package)
@@ -1774,24 +2239,38 @@ def main():
     zoo_roll = zoo_stress(dev, sc, ncfg, m_cfg, m_weights)
     zoo_ft = zoo_dense_step(dev)
 
+    # ---- 16. the data and experiment layers -------------------------------
+    with tempfile.TemporaryDirectory() as tmp:
+        configs = data_layers(dev, tmp)
+        staged_experiment(dev, tmp, configs)
+        grid_sweep(dev, tmp, configs)
+
+    # ---- 17. the one-chip scale ceiling -------------------------------------
+    scale = scale_ceiling(dev, model)
+
     kernels = [
         dict(name="pairwise_topk (K1)", route="cuda",
              source="piml_tpu_torch/csrc/pairwise_topk.cu",
              replaces="piml_tpu/ops/pairwise.py:91",
-             launches=launches["k1"] + zoo_roll["k1"] + zoo_ft["k1"],
+             launches=(launches["k1"] + zoo_roll["k1"] + zoo_ft["k1"]
+                       + scale["k1"]),
              launches_default_rollout=k1_default,
              launches_k1_route=launches["k1"] - k1_default,
              launches_pinnsf_m_rollout=zoo_roll["k1"],
-             launches_pinnsf_m_finetune=zoo_ft["k1"], **record["k1"]),
+             launches_pinnsf_m_finetune=zoo_ft["k1"],
+             launches_scale_ceiling=scale["k1"], **record["k1"]),
         dict(name="banded_topk (K2)", route="cuda",
              source="piml_tpu_torch/csrc/banded_topk.cu",
              replaces="piml_tpu/ops/banded.py:116",
              launches=(launches["k2"] + ft_launches["k2"] + zoo_roll["k2"]
-                       + zoo_ft["k2"]),
+                       + zoo_ft["k2"] + scale["k2"]),
              launches_rollout=launches["k2"],
              launches_finetune=ft_launches["k2"],
              launches_pinnsf_m_rollout=zoo_roll["k2"],
-             launches_pinnsf_m_finetune=zoo_ft["k2"], **record["k2"]),
+             launches_pinnsf_m_finetune=zoo_ft["k2"],
+             launches_scale_ceiling=scale["k2"],
+             launches_wide_fallback=scale["wide_calls"],
+             half_grid_pass=scale["half_grid"], **record["k2"]),
     ]
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -56,10 +56,16 @@ class KernelCount:
     """Launch bookkeeping of one kernel wrapper: ``launches`` grows by one
     where the wrapper launches its kernel and nowhere else; ``fallbacks``
     counts frames whose banded result was not provably exact and were
-    recomputed by the dense path (banded selector only)."""
+    recomputed by the dense path (banded selector only); ``wide_calls``
+    counts the half-grid banded passes that replace that dense path past
+    its column ceiling, and ``wide_relaxed`` those of them whose result was
+    used without an exactness proof (``physics/features.py``
+    ``_banded_wide_fallback``)."""
 
     launches: int = 0
     fallbacks: int = 0
+    wide_calls: int = 0
+    wide_relaxed: int = 0
 
 
 class _Library:

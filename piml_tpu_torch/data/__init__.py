@@ -1,6 +1,9 @@
 from piml_tpu_torch.data.datasets import (  # noqa: F401
     FinetuneDataset,
+    OnlyTrainingDataset,
     PointwiseDataset,
+    RatioSplitDataset,
+    SceneListSplitDataset,
     VisDataset,
     apply_config_augmentation,
     augment_scenes,
@@ -22,3 +25,4 @@ from piml_tpu_torch.data.views import (  # noqa: F401
     to_pointwise,
     window_slice,
 )
+from piml_tpu_torch.data import processing  # noqa: F401

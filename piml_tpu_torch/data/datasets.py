@@ -10,15 +10,19 @@ view on one device:
 - :class:`FinetuneDataset` (dataset.py:312, with dataset.py:399's
   time-indexed validation): train as ``'slice'`` windows, valid and test
   time-indexed;
+- :class:`RatioSplitDataset` (dataset.py:208-255): one scene split by
+  frame-index ratio;
+- :class:`SceneListSplitDataset` (dataset.py:155-206): a list of scenes
+  split by scene index;
+- :class:`OnlyTrainingDataset` (dataset.py:256-310): pointwise train,
+  channeled validation windows when finetuning;
 - :class:`VisDataset` (dataset.py:423): every split time-indexed.
 
 Feature dims are published back onto the config (dataset.py:144-146).
 The JAX package's ``stacked_channel_batches`` exists only to feed its
 finetune epoch, one ``lax.scan`` over stacked batches; the port's trainer
 loops over :func:`channel_batches` instead.  ``polar=True`` builds the
-polar views (``*Polar`` classes, dataset.py:454, :503).  The ratio /
-scene-list / train-only orchestrators and ``data/processing.py`` are not
-ported yet (ROADMAP.md).
+polar views (``*Polar`` classes, dataset.py:454, :503).
 """
 
 from __future__ import annotations
@@ -35,7 +39,8 @@ from piml_tpu_torch.config import PIMLConfig
 from piml_tpu_torch.data.views import (ChanneledData, PointwiseData,
                                        TimeIndexedData, make_time_indexed,
                                        merge_pointwise, pad_agents,
-                                       to_channeled, to_pointwise)
+                                       slice_frames, to_channeled,
+                                       to_pointwise)
 from piml_tpu_torch.scene import Scene, mirror, random_walk_noise, rotate
 
 Device = Union[str, torch.device]
@@ -220,6 +225,141 @@ class FinetuneDataset(_Orchestrator):
             train_ti = [pad_agents(t, n_max) for t in train_ti]
         self.train_data = [to_channeled(t, cfg.valid_steps, "slice")
                            for t in train_ti]
+        return _publish_dims(cfg, ti)
+
+
+class RatioSplitDataset:
+    """One scene split by frame-index ratio (reference:
+    ``PointwisePedDataset.old_build_dataset``, dataset.py:208-255, with
+    ``split_train_val_test``, dataset.py:75-95): train and valid are
+    pointwise rows of their frames, drawn from the velocity-perturbed view
+    when ``add_noise_flag`` (dataset.py:222-228); test is the clean
+    contiguous tail, time-indexed."""
+
+    def __init__(self, polar: bool = False, device: Device = "cuda:0"):
+        self.polar = polar
+        self.device = device
+        self.scene: Optional[Scene] = None
+        self.train_data: Optional[PointwiseData] = None
+        self.valid_data: Optional[PointwiseData] = None
+        self.test_data: List[TimeIndexedData] = []
+
+    def load_data(self, path_or_config: str) -> None:
+        """A ``.npy`` scene, or a data config that names exactly one."""
+        if path_or_config.endswith(".npy"):
+            self.scene = Scene.load(path_or_config, device=self.device)
+            return
+        raw = load_scenes(path_or_config, self.device)
+        scenes = [s for split in raw.values() for s in split]
+        if len(scenes) != 1:
+            raise ValueError("RatioSplitDataset splits a single scene by "
+                             f"ratio; got {len(scenes)} scenes")
+        self.scene = scenes[0]
+
+    def build_dataset(self, cfg: PIMLConfig) -> PIMLConfig:
+        if self.scene is None:
+            raise RuntimeError("must load raw data before build_dataset")
+        cfg = cfg.replace(time_unit=self.scene.time_unit)
+        clean = make_time_indexed(cfg, self.scene, polar=self.polar)
+        noisy = clean
+        if cfg.add_noise_flag:
+            noisy = make_time_indexed(
+                cfg, perturb_velocity(self.scene, cfg.add_noise_std,
+                                      cfg.seed), polar=self.polar)
+        train_idx, valid_idx, test_idx = split_train_val_test(
+            clean.num_frames, cfg.train_ratio, cfg.val_ratio, cfg.test_ratio,
+            cfg.seed, shuffle=cfg.shuffle)
+        self.train_data = to_pointwise(noisy, frames=train_idx)
+        self.valid_data = to_pointwise(noisy, frames=valid_idx)
+        self.test_data = (
+            [slice_frames(clean, int(test_idx[0]), int(test_idx[-1]) + 1)]
+            if len(test_idx) else [])
+        return _publish_dims(cfg, clean)
+
+
+class SceneListSplitDataset:
+    """A list of scenes split by scene index (reference:
+    ``PointwisePedDataset.build_dataset_with_list``, dataset.py:155-206),
+    with ``split_train_val_test``'s index semantics and no shuffle
+    (dataset.py:170-172): train and valid scenes merged pointwise, test
+    the first test scene, time-indexed (the reference keeps only
+    ``test_data[0]``, dataset.py:194-195)."""
+
+    def __init__(self, polar: bool = False, device: Device = "cuda:0"):
+        self.polar = polar
+        self.device = device
+        self.scenes: List[Scene] = []
+        self.train_data: Optional[PointwiseData] = None
+        self.valid_data: Optional[PointwiseData] = None
+        self.test_data: List[TimeIndexedData] = []
+
+    def load_data(self, path_or_config: Union[str, Sequence[str]]) -> None:
+        """A list of ``.npy`` scenes, or a data config (every split's
+        scenes, in its order)."""
+        if isinstance(path_or_config, (list, tuple)):
+            self.scenes = [Scene.load(p, device=self.device)
+                           for p in path_or_config]
+        else:
+            raw = load_scenes(path_or_config, self.device)
+            self.scenes = [s for split in raw.values() for s in split]
+
+    def build_dataset(self, cfg: PIMLConfig) -> PIMLConfig:
+        if not self.scenes:
+            raise RuntimeError("must load raw data before build_dataset")
+        cfg = cfg.replace(time_unit=_check_time_unit({"all": self.scenes}))
+        views = [make_time_indexed(cfg, s, polar=self.polar)
+                 for s in self.scenes]
+        train_idx, valid_idx, test_idx = split_train_val_test(
+            len(views), cfg.train_ratio, cfg.val_ratio, cfg.test_ratio,
+            cfg.seed, shuffle=False)
+        self.train_data = merge_pointwise(
+            [to_pointwise(views[i]) for i in train_idx])
+        self.valid_data = merge_pointwise(
+            [to_pointwise(views[i]) for i in valid_idx])
+        self.test_data = [views[test_idx[0]]] if len(test_idx) else []
+        return _publish_dims(cfg, views[0])
+
+
+class OnlyTrainingDataset(_Orchestrator):
+    """Train-only orchestration (reference:
+    ``PointwisePedDatasetOnlyTraining``, dataset.py:256-310): train as
+    pointwise rows (velocity-perturbed with ``add_noise_flag``); valid as
+    ``'split'`` windows when ``finetune_flag``, else pointwise; test
+    time-indexed.
+
+    The reference's ``pointwise_set.union({'valid'})`` is a no-op (its
+    result is discarded, dataset.py:275-277), yet it still merges valid as
+    pointwise at dataset.py:289; this class implements the evident intent,
+    as the JAX package does."""
+
+    def __init__(self, polar: bool = False, device: Device = "cuda:0"):
+        super().__init__(polar, device)
+        self.train_data: Optional[PointwiseData] = None
+        self.valid_data: Union[PointwiseData, List[ChanneledData],
+                               None] = None
+        self.test_data: List[TimeIndexedData] = []
+
+    def build_dataset(self, cfg: PIMLConfig) -> PIMLConfig:
+        raw, cfg = self._raw(cfg)
+        ti = None
+        train, valid, test = [], [], []
+        for split, scenes in raw.items():
+            for i, scene in enumerate(scenes):
+                if split == "train":
+                    ti = make_time_indexed(cfg, _maybe_noisy(scene, cfg, i),
+                                           polar=self.polar)
+                    train.append(to_pointwise(ti))
+                elif split == "valid":
+                    ti = make_time_indexed(cfg, scene, polar=self.polar)
+                    valid.append(to_channeled(ti, cfg.valid_steps, "split")
+                                 if cfg.finetune_flag else to_pointwise(ti))
+                else:
+                    ti = make_time_indexed(cfg, scene, polar=self.polar)
+                    test.append(ti)
+        self.train_data = merge_pointwise(train)
+        self.valid_data = valid if cfg.finetune_flag else \
+            merge_pointwise(valid)
+        self.test_data = test
         return _publish_dims(cfg, ti)
 
 

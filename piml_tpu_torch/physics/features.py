@@ -12,7 +12,10 @@ device":
 - a single frame (rank 2) whose pair grid reaches 2^21 goes through the
   hand-written kernels on the card: K2 (``ops/banded.py``) when
   ``use_grid_topk``, with K1 (``ops/pairwise.py``) as its exact fallback,
-  or K1 directly;
+  or K1 directly; past ``DENSE_COLUMN_CEILING`` agents the agent pass's
+  fallback is a second K2 pass on a half-resolution grid
+  (:func:`_banded_wide_fallback`), where the JAX package's dense kernel
+  stops;
 - ``batched=True`` with a rank-3 ``(C, N, 2)`` batch of frames (the
   channeled BPTT finetune) past the same gate: the channel-batched K2, one
   launch per pass for all channels and ONE exactness decision for the
@@ -37,6 +40,13 @@ from piml_tpu_torch.ops import banded, pairwise
 
 INF = math.inf
 _GATE = 2 ** 21
+# The JAX package's dense kernel holds its whole column table in one TPU
+# core's VMEM and so takes at most 257,536 lane-padded columns
+# (``pair_pass_fits`` of piml_tpu/ops/pairwise.py:202-237, a VMEM model the
+# port does not carry).  K1 has no such ceiling, but past it the selection
+# follows the JAX package's: the agent pass falls back to the half-grid
+# banded pass, not to the O(N^2) dense scan.
+DENSE_COLUMN_CEILING = 257_536
 _PAIR_CHUNK = 2 ** 25   # pair elements per chunk of the contact counts
 
 
@@ -54,6 +64,12 @@ class NeighborConfig(NamedTuple):
     dist_threshold_obs: float = 4.0
     use_pallas_topk: bool = True
     use_grid_topk: bool = True
+
+
+def _on_card(x: torch.Tensor) -> bool:
+    """Whether the selection takes the card's route (the JAX package's
+    "the backend is a TPU"): the tensor lies on a CUDA device."""
+    return x.is_cuda
 
 
 def _nan_to_zero(x: torch.Tensor) -> torch.Tensor:
@@ -196,13 +212,48 @@ def prepare_obstacle_index(n_agents: int, obstacles: torch.Tensor,
         cfg.use_grid_topk
         and n_agents * _lane_padded(n_agents) >= _GATE
         and n_agents * _lane_padded(m) >= _GATE
-        and (obstacles.is_cuda or not cfg.use_pallas_topk)
+        and (_on_card(obstacles) or not cfg.use_pallas_topk)
     )
     if not engaged:
         return None
     k_obs = min(cfg.topk_obs, m)
     g_o, w_o = _obstacle_params(n_agents, m, k_obs)
     return banded.build_object_index(obstacles, g_o, w_o)
+
+
+def _banded_wide_fallback(position: torch.Tensor, heading: torch.Tensor,
+                          k: int, sight_angle: float, dist_threshold: float
+                          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The agent pass's fallback past ``DENSE_COLUMN_CEILING``: K2 again
+    on a grid of half the resolution (piml_tpu/physics/features.py:269).
+
+    Halving the grid doubles the cell size, every row's distance-to-box
+    bound and the tiles' windows (uniform 524k / 1M scenes overflow the
+    fine grid's windows on a few tiles, 2 of 8,192 at 1,048,576 agents,
+    and fit the half grid's).  The result is used whatever the exactness
+    flag says, as in the JAX package, whose dense pass cannot run at this
+    scale (K1 could, at 10^12 pairs a frame): a row past even the doubled
+    bound keeps its 5x5 half-grid box (9x9 fine cells).
+    ``KERNEL.wide_calls`` counts the calls, ``wide_relaxed`` those whose
+    flag was false (one host read each).
+
+    A standing difference: above ~10k columns the JAX package shrinks its
+    row tile (TPU VMEM machinery, ``auto_tile_n``,
+    piml_tpu/ops/banded.py:99-113), so at 1,048,576 agents its windows are
+    16,256 (fine) and 32,128 (half grid) columns where the port's 128-row
+    tiles give 16,384 and 32,256.  Both selections are exact wherever
+    their flag says so; they can differ only on rows a pass relaxes."""
+    n = position.shape[0]
+    g1, _ = banded.banded_params(n, n, k, fine=True)
+    g2 = max(g1 // 2, 3)
+    _, w2 = banded.banded_params(n, n, k, grid_dim=g2, fine=True)
+    bd, bi, exact = banded.topk_neighbors_banded(
+        position, heading, k, sight_angle, dist_threshold=dist_threshold,
+        grid_dim=g2, window=w2)
+    banded.KERNEL.wide_calls += 1
+    if not bool(exact):
+        banded.KERNEL.wide_relaxed += 1
+    return bd, bi
 
 
 def _obstacle_params(n_agents: int, m: int, k_obs: int):
@@ -243,7 +294,7 @@ def relative_features(
     state = torch.cat([position, velocity, acceleration], dim=-1)  # ..., N, 6
     n_real = state.shape[-2]
     k_ped = min(cfg.topk_ped, n_real)
-    on_card = position.is_cuda
+    on_card = _on_card(position)
 
     big_single_frame = (position.ndim == 2
                         and n_real * _lane_padded(n_real) >= _GATE)
@@ -257,6 +308,10 @@ def relative_features(
 
     def _ped_dense():
         if use_kernel:
+            if _lane_padded(n_real) > DENSE_COLUMN_CEILING:
+                return _banded_wide_fallback(position, heading, k_ped,
+                                             cfg.sight_angle_ped,
+                                             cfg.dist_threshold_ped)
             return pairwise.topk_neighbors_pallas(
                 position, heading, k_ped, cfg.sight_angle_ped)
         with torch.no_grad():

@@ -92,6 +92,67 @@ class Scene:
                      self.destination.cpu().numpy(),
                      self.obstacles.cpu().numpy())
 
+    def pad_agents(self, n_cap: int) -> "Scene":
+        """The agent axis padded to ``n_cap`` with inactive slots: NaN
+        positions, destinations and waypoints, zero velocities,
+        accelerations, waypoint indices and masks, one waypoint each.
+        Static pre-allocation in place of the reference's
+        ``add_pedestrians`` growth (src/data/data.py:259-303)."""
+        n = self.num_pedestrians
+        if n_cap < n:
+            raise ValueError(f"capacity {n_cap} < current agents {n}")
+        if n_cap == n:
+            return self
+        dn = n_cap - n
+
+        def pad2(x, fill):
+            return torch.cat([x, x.new_full(x.shape[:-2] + (dn, x.shape[-1]),
+                                            fill)], dim=-2)
+
+        def padm(x, fill=0):
+            return torch.cat([x, x.new_full(x.shape[:-1] + (dn,), fill)],
+                             dim=-1)
+
+        return dataclasses.replace(
+            self,
+            position=pad2(self.position, math.nan),
+            velocity=pad2(self.velocity, 0.0),
+            acceleration=pad2(self.acceleration, 0.0),
+            destination=pad2(self.destination, math.nan),
+            waypoints=pad2(self.waypoints, math.nan),
+            dest_idx=padm(self.dest_idx, 0),
+            dest_num=padm(self.dest_num, 1),
+            mask_p=padm(self.mask_p),
+            mask_v=padm(self.mask_v),
+            mask_a=padm(self.mask_a),
+        )
+
+    def pad_time(self, t_cap: int) -> "Scene":
+        """The time axis padded to ``t_cap`` frames in which nobody is
+        present: NaN positions and destinations, zero velocities,
+        accelerations, waypoint indices and masks."""
+        t = self.num_steps
+        if t_cap < t:
+            raise ValueError(f"capacity {t_cap} < current steps {t}")
+        if t_cap == t:
+            return self
+
+        def padt(x, fill):
+            return torch.cat([x, x.new_full((t_cap - t,) + x.shape[1:],
+                                            fill)], dim=0)
+
+        return dataclasses.replace(
+            self,
+            position=padt(self.position, math.nan),
+            velocity=padt(self.velocity, 0.0),
+            acceleration=padt(self.acceleration, 0.0),
+            destination=padt(self.destination, math.nan),
+            dest_idx=padt(self.dest_idx, 0),
+            mask_p=padt(self.mask_p, 0.0),
+            mask_v=padt(self.mask_v, 0.0),
+            mask_a=padt(self.mask_a, 0.0),
+        )
+
 
 def crop(scene: Scene, start: int, stop: int,
          agents: Optional[Sequence[int]] = None) -> Scene:

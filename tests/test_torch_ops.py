@@ -581,3 +581,96 @@ def test_selection_carries_no_gradient_like_jax(rng, which):
     finally:
         setattr(mod, name, real)
     assert seen and not any(seen)
+
+
+# ---------------------------------------------------------------------------
+# the agent pass's wide fallback: K2 on the half grid
+# ---------------------------------------------------------------------------
+
+def _wide_scene(rng, name):
+    """``uniform``: the JAX package's scene for its wide-fallback test
+    (1,500 agents over 60 m, headed inward), exact on both grids;
+    ``cluster``: half the agents within 3 m, whose fine-grid tile windows
+    overflow while the half grid's hold them; ``tight_cluster``: 90 %
+    within 0.5 m, inexact on both grids (the half-grid result relaxes)."""
+    if name == "uniform":
+        return _spread(rng, 1500, 60.0)
+    frac, size = {"cluster": (0.5, 3.0), "tight_cluster": (0.9, 0.5)}[name]
+    n = 1500
+    pos = (rng.rand(n, 2) * 100.0).astype(np.float32)
+    c = int(n * frac)
+    pos[:c] = rng.rand(c, 2) * size + 50.0
+    return pos, _heading(rng.randn(n, 2).astype(np.float32))
+
+
+@pytest.mark.parametrize("name,relaxed", [("uniform", False),
+                                          ("cluster", False),
+                                          ("tight_cluster", True)])
+def test_wide_fallback_matches_jax(rng, name, relaxed):
+    """``_banded_wide_fallback`` against the JAX package's (the half-grid
+    banded pass, its Pallas kernel in interpret mode), as
+    ``tests/test_banded.py::test_huge_m_fallback_is_banded_not_dense``
+    runs it: the selections agree whether or not the pass is exact, and
+    the port counts the call and, when the flag is false, the relaxation.
+    Where the pass is exact its in-threshold slots are K1's."""
+    from piml_tpu.physics.features import _banded_wide_fallback as jax_wide
+    from piml_tpu_torch.physics import features
+
+    pos, h = _wide_scene(rng, name)
+    d_j, i_j = jax_wide(jnp.asarray(pos), jnp.asarray(h), 6, 90.0, 4.0)
+    calls, relaxed0 = banded.KERNEL.wide_calls, banded.KERNEL.wide_relaxed
+    d_t, i_t = features._banded_wide_fallback(_t(pos), _t(h), 6, 90.0, 4.0)
+    assert_selection_close(d_j, i_j, d_t, i_t)
+    assert banded.KERNEL.wide_calls == calls + 1
+    assert banded.KERNEL.wide_relaxed == relaxed0 + int(relaxed)
+    if not relaxed:
+        d1, i1 = pairwise.topk_neighbors_pallas(_t(pos), _t(h), 6, 90.0)
+        _k1_equal_where_exact(d_t, i_t, d1, i1, 4.0)
+
+
+@pytest.mark.parametrize("route", ["k1_below_ceiling", "wide_past_ceiling",
+                                   "banded_then_wide_past_ceiling"])
+def test_agent_fallback_past_the_column_ceiling_is_the_half_grid_pass(
+        rng, monkeypatch, route):
+    """The card's routing of ``relative_features`` (the CPU route standing
+    in: ``_on_card`` patched, the wrappers take their plain versions):
+    below ``DENSE_COLUMN_CEILING`` lane-padded agents the agent pass's
+    dense path is K1; past it (the ceiling patched down to 1,024 for a
+    1,500-agent frame) it is the half-grid K2 pass and K1 is never called,
+    also as the fallback of an inexact fine-grid pass.  The features equal
+    the K1 route's wherever the half-grid pass is exact."""
+    from piml_tpu_torch.physics import NeighborConfig, features
+
+    pos, h = _wide_scene(rng, "cluster" if "banded" in route else "uniform")
+    vel = torch.from_numpy(h)
+    obstacles = _t(rng.rand(64, 2) * 100.0)     # under the 2^21 gate
+    monkeypatch.setattr(features, "_on_card", lambda x: True)
+    k1_calls = []
+    real_k1 = pairwise.topk_neighbors_pallas
+
+    def counting_k1(*args, **kw):
+        k1_calls.append(args[0].shape)
+        return real_k1(*args, **kw)
+
+    monkeypatch.setattr(pairwise, "topk_neighbors_pallas", counting_k1)
+
+    def feats(cfg):
+        return features.relative_features(
+            _t(pos), vel, torch.zeros_like(vel), _t(pos[::-1].copy()),
+            obstacles, cfg)
+
+    ref = feats(NeighborConfig(use_grid_topk=False))   # the K1 route
+    assert len(k1_calls) == 1
+    if route == "k1_below_ceiling":
+        return
+    k1_calls.clear()
+    monkeypatch.setattr(features, "DENSE_COLUMN_CEILING", 1024)
+    before = (banded.KERNEL.fallbacks, banded.KERNEL.wide_calls,
+              banded.KERNEL.wide_relaxed)
+    got = feats(NeighborConfig(use_grid_topk="banded" in route))
+    assert k1_calls == []
+    assert (banded.KERNEL.fallbacks, banded.KERNEL.wide_calls,
+            banded.KERNEL.wide_relaxed) == (
+        before[0] + ("banded" in route), before[1] + 1, before[2])
+    for a, b in zip(got, ref):
+        assert torch.equal(a, b)
