@@ -133,6 +133,21 @@ Phases, one line each; any failure raises and exits non-zero:
     launch for agents; the half-grid K2 pass bitwise against its plain
     version on 16 tiles and against K1 on 4,096 sampled rows; one frame
     through the old route (K1 as the fallback).
+18. the parallel layer (``parallel_layer``): four ranks of one process
+    group share the card over gloo (``parallel.spawn_local``; the kernels
+    are built before they start), all at full width: (a) sharded K2 at the
+    dense stress padded to 12,688 agents, each rank's launch bitwise
+    against the plain version, the gathered agent features bitwise the
+    single-device pass's and the obstacle features the dense pass's, each
+    rank's pass timed alone, a forced-fallback frame; (b) the
+    agent-sharded eval rollout of the trained ``pinnsf_bm``, 10 frames,
+    bit for bit the single-device rollout with the same obstacle
+    selection; (c) phase 9's channel-DP step, 2 channels padded to 4,
+    against the single-device step; (d) sharded OT and MMD, 5 frames at
+    12,685 agents, against the single-device metrics; (e) tensor
+    parallelism on a 2 × 2 (dp, tp) mesh, the forward and one dp × tp
+    step, with ``pinnsf_bm`` at its published widths.  Times of ranks that
+    share one card are no multi-card speed.
 
 The line before the last holds the kernels' record as JSON (per kernel
 and per pass: ms, plain ms, ``bound_ms``, ``bound_by``, ``share`` of the
@@ -140,14 +155,14 @@ bound, ``library_ms`` null: no single PyTorch call computes a
 field-of-view top-k), and the last line is
 ``{"ok": true, "device": {...}}``.  Launch counts are zeroed just
 before each main path (phases 4-5, phase 9, phases 15c and 15d, phase
-17) and read just after it: they count only the main paths' launches.  Phases 12-14 run no kernel of the
-port: dense-N OT and MMD are torch ops, and the CLI pipeline's and the
+17, and on every rank phase 18b) and read just after it: they count only
+the main paths' launches.  Phases 12-14 run no kernel of the port: dense-N OT and MMD are torch ops, and the CLI pipeline's and the
 discovery loop's GC scenes (at most ~340 agents, 4,094 obstacle points)
 stay below the 2^21 pair gate that routes the feature pass to K1 / K2;
 phase 14 reads both counts after its run to show it; phase 16's runs
 are below that gate too.  It needs no network and starts no process
-besides ``nvidia-smi``, the ``nvcc`` builds and phase 16's two CLI runs,
-each of which it waits for.
+besides ``nvidia-smi``, the ``nvcc`` builds, phase 16's two CLI runs and
+phase 18's four rank processes, each of which it waits for.
 """
 
 import contextlib
@@ -577,6 +592,9 @@ class Clamped:
     def __init__(self, model):
         self.model = model
 
+    def parameters(self):
+        return self.model.parameters()
+
     def __call__(self, pf, of, sf, rng=None):
         import torch
 
@@ -654,9 +672,10 @@ def grad_rel_l2(got, ref):
     return math.sqrt(num / max(den, 1e-30)), worst
 
 
-def stress_rollout(model, sc, ncfg, frames):
+def stress_rollout(model, sc, ncfg, frames, mesh=None):
     """Initial features, then ``frames`` closed-loop steps; returns the
-    recorded outputs and the wall seconds of the loop."""
+    recorded outputs and the wall seconds of the loop.  ``mesh``: the pair
+    pass agent-sharded over its ``"ap"`` axis (``shard_agents``)."""
     import torch
 
     from piml_tpu_torch.engine import EngineConfig, SpawnFrame, init_state, \
@@ -679,12 +698,13 @@ def stress_rollout(model, sc, ncfg, frames):
                                              device=dev),
                         hist_v=z2)
     ecfg = EngineConfig(neighbor=ncfg, time_unit=0.08, lagged=True,
-                        retire_on_arrival=True)
+                        retire_on_arrival=True,
+                        shard_agents=mesh is not None)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     _, outs = rollout(model, ecfg, state, spawns, sc["wp"],
                       torch.ones(n, dtype=torch.int32, device=dev),
-                      sc["obstacles"], sc["ds"])
+                      sc["obstacles"], sc["ds"], mesh=mesh)
     torch.cuda.synchronize()
     return outs, time.perf_counter() - t0
 
@@ -1846,6 +1866,483 @@ def scale_ceiling(dev, model):
         k1_launches=old_k1, new_route_ms_per_frame=wall / SCALE_FRAMES * 1e3)
     return dict(counts, half_grid=record)
 
+# the parallel layer (phase 18): ranks sharing the one card over gloo, the
+# dense stress padded to a multiple of them, the sharded rollout's frames,
+# and the rows of the tensor-parallel forward (pinnsf_bm at its published
+# widths, 128 / 128 / 64, which the tp axis divides)
+RANKS = 4
+SHARD_FRAMES = 10
+TP_ROWS = 4096
+
+
+def padded_stress(dev):
+    """The dense-stress frame with absent agents appended up to a multiple
+    of ``RANKS`` (``data.views.pad_agents``'s fills)."""
+    import torch
+
+    sc = stress_scene(dev)
+    extra = -N_AGENTS % RANKS
+
+    def pad(x, value, axis=0):
+        shape = list(x.shape)
+        shape[axis] = extra
+        return torch.cat([x, torch.full(shape, value, dtype=x.dtype,
+                                        device=x.device)], dim=axis)
+
+    return dict(sc, pos=pad(sc["pos"], math.nan), vel=pad(sc["vel"], 0.0),
+                acc=pad(sc["acc"], 0.0), dest=pad(sc["dest"], math.nan),
+                ds=pad(sc["ds"], 0.0), wp=pad(sc["wp"], math.nan, axis=1))
+
+
+def ot_frames(dev):
+    """Phase 12's OT frames (``dense_metrics``' first draws), and a far
+    cloud a frame for MMD, 300 m away (the MMD of ``q = p + noise`` is
+    float32 rounding noise around 0, as phase 12 notes)."""
+    import torch
+
+    g = torch.Generator().manual_seed(SEED + 2)
+    p = torch.rand((OT_FRAMES, N_AGENTS, 2), generator=g) * 200.0
+    q = p + 0.5 * torch.randn(p.shape, generator=g)
+    far = torch.rand(p.shape, generator=g) * 200.0 + 300.0
+    return (p.to(dev), q.to(dev), far.to(dev),
+            torch.ones((OT_FRAMES, N_AGENTS), device=dev))
+
+
+def tp_models(dev):
+    """Phase 18e's seeded ``pinnsf_bm`` at phase 9's configuration (the
+    published widths): the pretrain model with its forward's inputs, and
+    the finetune model."""
+    import torch
+
+    from piml_tpu_torch.config import PIMLConfig
+    from piml_tpu_torch.models import ModelSpec, build_model
+
+    cfg = PIMLConfig(**TRAIN_CFG, ft_batch_size=TRAIN_CHANNELS)
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(SEED)
+        model = build_model(ModelSpec.from_config(cfg))
+    g = torch.Generator().manual_seed(SEED + 5)
+    rows = (torch.randn((TP_ROWS, 6, 6), generator=g),
+            torch.randn((TP_ROWS, 10, 6), generator=g),
+            torch.cat([torch.randn((TP_ROWS, 6), generator=g),
+                       torch.ones((TP_ROWS, 1))], dim=-1))
+    return (cfg, model.to(dev).eval(), [x.to(dev) for x in rows],
+            finetune_model(cfg, dev))
+
+
+def dense_obstacle_features(pos, vel, acc, obstacles, ncfg):
+    """One frame's obstacle features through the dense selection
+    (``nearby_in_sight``, the JAX package's matmul expansion), assembled as
+    ``relative_features`` assembles them: the selection every rank of the
+    agent-sharded route makes for its agents."""
+    import torch
+
+    from piml_tpu_torch.physics.features import (heading_direction,
+                                                 nearby_in_sight)
+
+    v0 = torch.where(torch.isnan(vel), 0.0, vel)
+    a0 = torch.where(torch.isnan(acc), 0.0, acc)
+    state = torch.cat([pos, v0, a0], dim=-1)
+    k = min(ncfg.topk_obs, obstacles.shape[0])
+    d, i = nearby_in_sight(pos, obstacles,
+                           heading_direction(v0, time_axis=False), k,
+                           ncfg.sight_angle_obs)
+    z = torch.zeros_like(obstacles)
+    rel = torch.cat([obstacles, z, z], dim=-1)[i] - state[:, None, :]
+    keep = (d <= ncfg.dist_threshold_obs)[..., None]
+    return torch.where(keep & torch.isfinite(rel), rel, 0.0)
+
+
+@contextlib.contextmanager
+def dense_obstacle_selection():
+    """The single-device rollout's per-step features with the obstacles
+    selected densely (``dense_obstacle_features``) in place of K2's pass:
+    the agent-sharded route's obstacle selection on one device."""
+    import importlib
+
+    rollout_mod = importlib.import_module("piml_tpu_torch.engine.rollout")
+    real = rollout_mod.relative_features
+
+    def features(p, v, a, dest, obstacles, ncfg, **kw):
+        ped, _, dest_f = real(p, v, a, dest, obstacles, ncfg, **kw)
+        return ped, dense_obstacle_features(p, v, a, obstacles, ncfg), dest_f
+
+    with mock.patch.object(rollout_mod, "relative_features", features):
+        yield
+
+
+def dp_step_model(dev):
+    """Phase 9's configuration, seeded finetune model and its optimizer."""
+    from piml_tpu_torch.config import PIMLConfig
+    from piml_tpu_torch.train.trainer import make_optimizer
+
+    cfg = PIMLConfig(**TRAIN_CFG, ft_batch_size=TRAIN_CHANNELS)
+    model = finetune_model(cfg, dev)
+    return cfg, model, make_optimizer(cfg, model.parameters(), finetune=True)
+
+
+def parallel_rank(rank, device, setup=None):
+    """One rank of phase 18 (``parallel_layer``); returns its results on
+    the CPU.  ``setup``: a callable run first on the rank."""
+    import torch
+    import torch.distributed as dist
+
+    from piml_tpu_torch import parallel
+    from piml_tpu_torch.ops import banded, pairwise
+    from piml_tpu_torch.parallel import agent_shard, tensor_parallel
+    from piml_tpu_torch.physics import NeighborConfig
+    from piml_tpu_torch.train.trainer import make_optimizer
+
+    if setup is not None:
+        setup()
+    out = {}
+    mesh = parallel.make_mesh(RANKS, "ap", device=device.type)
+    sc = padded_stress(device)
+    ncfg = NeighborConfig()
+    frame = (sc["pos"], sc["vel"], sc["acc"], sc["dest"], sc["obstacles"])
+
+    # a. the sharded K2 pass: this rank's launch against the plain version
+    fb0 = banded.KERNEL.fallbacks
+    args, feats = banded_args(agent_shard.sharded_banded_features, *frame,
+                              ncfg, mesh)
+    exact_fallbacks = banded.KERNEL.fallbacks - fb0
+    out_k = banded.banded_topk_cuda(*args)
+    out_p = banded.banded_topk_plain(*args[:-1])
+    torch.cuda.synchronize()
+    assert_equal(out_k[0], out_p[0], f"rank {rank}: sharded K2 dist")
+    assert_equal(out_k[1], out_p[1], f"rank {rank}: sharded K2 idx")
+    for r in range(RANKS):          # one rank on the card at a time
+        dist.barrier()
+        if r == rank:
+            ms = queued_ms(lambda: banded.banded_topk_cuda(*args), 50)
+            plain_ms = queued_ms(
+                lambda: banded.banded_topk_plain(*args[:-1]), 10)
+        dist.barrier()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(5):
+        agent_shard.sharded_banded_features(*frame, ncfg, mesh)
+    torch.cuda.synchronize()
+    caller_ms = (time.perf_counter() - t0) / 5 * 1e3
+    # a forced fallback: the last rank's proof fails, so every rank takes
+    # the ring pass
+    real = banded.topk_neighbors_banded
+
+    def unproven(*a, **kw):
+        d, i, _ = real(*a, **kw)
+        return d, i, torch.zeros((), dtype=torch.bool, device=d.device)
+
+    fb0 = banded.KERNEL.fallbacks
+    with mock.patch.object(banded, "topk_neighbors_banded",
+                           unproven if rank == RANKS - 1 else real):
+        forced = agent_shard.sharded_banded_features(*frame, ncfg, mesh)
+    forced_fallbacks = banded.KERNEL.fallbacks - fb0
+    ring = agent_shard.sharded_relative_features(*frame, ncfg, mesh)
+    for a_, b_, what in zip(forced, ring, ("ped", "obs", "dest")):
+        assert_equal(a_, b_, f"rank {rank}: forced fallback vs ring {what}")
+    out["a"] = dict(pass_record(ms, plain_ms, k2_bound(args)),
+                    max_abs_err=max_abs_err(out_k[0], out_p[0]),
+                    rows=int(args[2].shape[-2]), caller_ms=caller_ms,
+                    exact_fallbacks=exact_fallbacks,
+                    forced_fallbacks=forced_fallbacks,
+                    features=[t.cpu() for t in feats], ring=ring[0].cpu())
+
+    # b. the agent-sharded eval rollout (the main path's run: counts zeroed
+    # just before it, read just after)
+    _, model = trained_model(device)
+    stress_rollout(model, sc, ncfg, WARMUP_FRAMES, mesh)
+    pairwise.KERNEL.launches = 0
+    banded.KERNEL.launches = 0
+    banded.KERNEL.fallbacks = 0
+    banded.KERNEL.sharded_calls = 0
+    outs, wall = stress_rollout(model, sc, ncfg, SHARD_FRAMES, mesh)
+    out["b"] = dict(p=outs.p.cpu(), mask=outs.mask.cpu(),
+                    ms_per_frame=wall / SHARD_FRAMES * 1e3,
+                    k2_launches=banded.KERNEL.launches,
+                    k2_fallbacks=banded.KERNEL.fallbacks,
+                    sharded_calls=banded.KERNEL.sharded_calls,
+                    k1_launches=pairwise.KERNEL.launches)
+
+    # c. channel-DP dense-N step: 2 channels padded to 4, one a rank
+    cfg9, model9, opt = dp_step_model(device)
+    batch9 = dense_batch(device)
+    dp_mesh = parallel.make_mesh(RANKS, "dp", device=device.type)
+    step = parallel.make_dp_finetune_step(cfg9, Clamped(model9), opt, dp_mesh)
+    torch.cuda.reset_peak_memory_stats(device)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    terms = step(batch9)
+    torch.cuda.synchronize()
+    out["c"] = dict(s_per_step=time.perf_counter() - t0,
+                    max_memory_allocated_bytes=torch.cuda.max_memory_allocated(
+                        device),
+                    terms={k: float(v) for k, v in terms._asdict().items()},
+                    params={k: v.detach().cpu()
+                            for k, v in model9.state_dict().items()},
+                    grads={k: v.grad.cpu()
+                           for k, v in model9.named_parameters()})
+
+    # d. sharded OT and MMD
+    p, q, far, ones = ot_frames(device)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ot = float(parallel.sharded_ot_with_time_mask(p, q, ones, mesh, "ap",
+                                                  "sum"))
+    t1 = time.perf_counter()
+    mmd = float(parallel.sharded_mmd_with_time_mask(p, far, ones, mesh, "ap",
+                                                    "sum"))
+    t2 = time.perf_counter()
+    its = [parallel.sharded_sinkhorn(p[t], q[t], ones[t], ones[t], mesh,
+                                     with_iterations=True)[1]
+           for t in range(OT_FRAMES)]
+    out["d"] = dict(ot=ot, mmd=mmd, sinkhorn_iterations=its,
+                    ot_ms_per_frame=(t1 - t0) / OT_FRAMES * 1e3,
+                    mmd_ms_per_frame=(t2 - t1) / OT_FRAMES * 1e3)
+
+    # e. tensor parallelism on a 2 × 2 (dp, tp) mesh
+    tp_mesh = parallel.make_mesh((2, 2), ("dp", "tp"), device=device.type)
+    cfg_tp, model_tp, rows, ft_tp = tp_models(device)
+    with torch.no_grad():
+        fwd = parallel.make_tp_apply(model_tp, tp_mesh)(*rows).pred_acc
+    tp_ft, _ = tensor_parallel.shard_params_tp(ft_tp, tp_mesh)
+    opt = make_optimizer(cfg_tp, tp_ft.parameters(), finetune=True)
+    step = parallel.make_tp_dp_finetune_step(cfg_tp, Clamped(tp_ft), opt,
+                                             tp_mesh)
+    terms = step(batch9)
+    out["e"] = dict(forward=fwd.cpu(), loss=float(terms.loss),
+                    params={k: v.cpu() for k, v in
+                            tensor_parallel.gather_params_tp(tp_ft).items()})
+    return out
+
+
+def one_step(cfg, model, opt, batch):
+    """One single-device finetune step of the clamped ``model``."""
+    from piml_tpu_torch.engine import training_rollout_loss
+
+    out = training_rollout_loss(Clamped(model), cfg, batch)
+    opt.zero_grad(set_to_none=True)
+    out.loss.backward()
+    opt.step()
+    return out
+
+
+def close_params(got, ref, rtol, atol, what):
+    """Every parameter of ``got`` within ``rtol`` / ``atol`` of ``ref``;
+    returns the largest absolute gap."""
+    import torch
+
+    worst = 0.0
+    for name, t in ref.items():
+        g = got[name].to(t.device)
+        if not torch.allclose(g, t, rtol=rtol, atol=atol):
+            raise AssertionError(f"{what}: parameter {name} differs (max "
+                                 f"{float((g - t).abs().max())})")
+        worst = max(worst, float((g - t).abs().max()))
+    return worst
+
+
+def parallel_layer(dev, setup=None):
+    """Phase 18: the parallel layer, ``RANKS`` ranks on the one card over
+    gloo (``parallel.spawn_local``; NCCL refuses ranks that share a
+    device).  Times of time-sliced ranks on one card are no multi-card
+    speed.  Each check holds the ranks' results against the single-device
+    path on the card, computed here:
+
+    a. sharded K2 at the dense stress (12,685 agents padded to 12,688,
+       4,096 obstacle points): each rank's launch bitwise against the plain
+       version on its shard; the gathered agent features bitwise equal to
+       the single-device pass's (both proofs hold: K2's features are then
+       the dense selection's); the gathered obstacle features (each rank's
+       dense pass on its agents, as in JAX) bitwise equal to the dense pass
+       on the whole frame (``dense_obstacle_features``); each rank's pass
+       in ms (one rank on the card at a time), bound and share; a frame
+       whose last rank's proof is forced to fail, where every rank takes
+       the ring pass (one fallback each, bitwise the ring pass's output);
+    b. the agent-sharded eval rollout of the trained ``pinnsf_bm``,
+       ``SHARD_FRAMES`` frames after ``WARMUP_FRAMES``, against the
+       single-device rollout with the same obstacle selection
+       (``dense_obstacle_selection``; agents through K2): masks equal and
+       positions bit for bit on every frame (largest gap 0 m); ms/frame,
+       K2 launches, fallbacks and sharded calls per rank (counts zeroed
+       just before the run);
+    c. phase 9's channel-DP dense-N step, 2 channels padded to 4 (two
+       inert), one a rank: loss and updated parameters against the
+       single-device step on the unpadded batch (rtol 1e-4, atol 1e-5:
+       tests/test_sharding.py:71-75), the summed gradients to relative L2
+       1e-4 per tensor; s/step and peak memory per rank;
+    d. sharded OT on phase 12's frames and MMD against a far cloud
+       (``ot_frames``), against the single-device metrics (rel 1e-4; MMD
+       abs 1e-6), Sinkhorn iterations, ms/frame;
+    e. ``pinnsf_bm``'s tensor-parallel forward at its published widths on
+       ``TP_ROWS`` rows against the replicated forward (rtol 1e-5, atol
+       1e-6), and one dp × tp (2 × 2) step against the single-device step
+       (loss rtol 2e-4, parameters rtol 5e-4 / atol 5e-5:
+       tests/test_tensor_parallel.py).
+
+    Returns the record of the sharded K2 pass for the kernels line."""
+    import torch
+
+    from piml_tpu_torch import parallel
+    from piml_tpu_torch.metrics import mmd_with_time_mask, ot_with_time_mask
+    from piml_tpu_torch.ops import banded
+    from piml_tpu_torch.physics import NeighborConfig, relative_features
+
+    def bitwise(got, ref, what):
+        """``got`` equal to ``ref`` bit for bit, NaN where ``ref`` is NaN;
+        raises with the count and the largest gap."""
+        same = (got == ref) | (torch.isnan(got) & torch.isnan(ref))
+        if not bool(same.all()):
+            gap = torch.nan_to_num((got - ref).abs(), nan=math.inf)
+            raise AssertionError(f"{what}: {int((~same).sum())} of "
+                                 f"{same.numel()} values differ (largest "
+                                 f"gap {float(gap.max())})")
+
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    results = parallel.spawn_local(parallel_rank, RANKS, "gloo", str(dev),
+                                   args=(setup,), timeout=900)
+    spawn_s = time.perf_counter() - t0
+    r0 = results[0]
+
+    # a
+    sc = padded_stress(dev)
+    ncfg = NeighborConfig()
+    launches = banded.KERNEL.launches
+    with torch.inference_mode():
+        ref = relative_features(sc["pos"], sc["vel"], sc["acc"], sc["dest"],
+                                sc["obstacles"], ncfg)
+    one_device_launches = banded.KERNEL.launches - launches
+    dense_obs = dense_obstacle_features(sc["pos"], sc["vel"], sc["acc"],
+                                        sc["obstacles"], ncfg)
+    for r, res in enumerate(results):
+        a = res["a"]
+        if a["exact_fallbacks"] or a["forced_fallbacks"] != 1:
+            raise AssertionError(f"rank {r}: fallbacks {a['exact_fallbacks']}"
+                                 f" / forced {a['forced_fallbacks']}")
+        assert_equal(a["features"][0].to(dev), ref[0],
+                     f"rank {r}: gathered sharded K2 agent features")
+        bitwise(a["features"][1].to(dev), dense_obs,
+                f"rank {r}: gathered sharded obstacle features vs the "
+                "dense pass")
+    # the dense selection against K2's (direct differencing): rounding at
+    # |p| ~ 200 m moves a few obstacles across the 4 m threshold
+    obs_rows = int((dense_obs != ref[1]).any(-1).any(-1).sum())
+    ring_rows = int((r0["a"]["ring"].to(dev) != ref[0]).any(-1)
+                    .any(-1).sum())
+    passes = [res["a"] for res in results]
+    say("parallel_sharded_k2", ranks=RANKS, agents=N_AGENTS,
+        rows_per_rank=r0["a"]["rows"],
+        ms=[p["ms"] for p in passes], plain_ms=[p["plain_ms"] for p in passes],
+        bound_ms=[p["bound_ms"] for p in passes],
+        bound_by=[p["bound_by"] for p in passes],
+        share=[p["share"] for p in passes],
+        caller_ms=[p["caller_ms"] for p in passes],
+        bitwise_equal_plain=True, agent_features_bitwise_single_device=True,
+        obstacle_features_bitwise_dense_pass=True,
+        dense_obstacle_rows_differing_from_k2=obs_rows,
+        ring_rows_differing_from_k2=ring_rows,
+        forced_fallback_every_rank=True, spawn_s=spawn_s)
+
+    # b
+    _, model = trained_model(dev)
+    with dense_obstacle_selection():
+        ref_roll, ref_wall = stress_rollout(model, sc, ncfg, SHARD_FRAMES)
+    live = ref_roll.mask[-1] == 1
+    for r, res in enumerate(results):
+        b = res["b"]
+        counts = {k: b[k] for k in ("k2_launches", "k2_fallbacks",
+                                    "sharded_calls", "k1_launches")}
+        # one sharded K2 launch a frame, and the initial frame's features
+        # on one device (its agent and obstacle K2 passes)
+        if (b["sharded_calls"] != SHARD_FRAMES or b["k1_launches"]
+                or b["k2_launches"] != SHARD_FRAMES + one_device_launches):
+            raise AssertionError(f"rank {r}: sharded rollout {counts}")
+        if not torch.equal(b["mask"].to(dev), ref_roll.mask):
+            raise AssertionError(f"rank {r}: sharded rollout masks differ")
+        # the same selections on both sides (18a: agents bit for bit K2's,
+        # obstacles bit for bit the dense pass's), so every position of
+        # every frame is bit for bit one device's: largest gap 0 m
+        bitwise(b["p"].to(dev), ref_roll.p,
+                f"rank {r}: sharded rollout positions")
+    say("parallel_sharded_rollout", frames=SHARD_FRAMES,
+        ms_per_frame=[res["b"]["ms_per_frame"] for res in results],
+        single_device_dense_obstacles_ms_per_frame=(ref_wall / SHARD_FRAMES
+                                                    * 1e3),
+        k2_launches=[res["b"]["k2_launches"] for res in results],
+        k2_fallbacks=[res["b"]["k2_fallbacks"] for res in results],
+        sharded_calls=[res["b"]["sharded_calls"] for res in results],
+        positions_bitwise_single_device=True, largest_gap_m=0.0,
+        live_agents=int(live.sum()))
+
+    # c
+    cfg9, model9, opt = dp_step_model(dev)
+    loss = one_step(cfg9, model9, opt, dense_batch(dev)).loss.item()
+    got = r0["c"]
+    if abs(got["terms"]["loss"] - loss) > 1e-4 * abs(loss):
+        raise AssertionError(f"DP step loss {got['terms']['loss']} vs "
+                             f"{loss}")
+    worst_c = close_params(got["params"], model9.state_dict(), 1e-4, 1e-5,
+                           "DP step")
+    # the summed gradients against one device's (other summation orders)
+    rel_c, worst_grad_c = grad_rel_l2(
+        got["grads"], {n: p.grad for n, p in model9.named_parameters()})
+    if not worst_grad_c <= 1e-4:
+        raise AssertionError(f"DP step gradients differ ({worst_grad_c})")
+    say("parallel_dp_step", channels=TRAIN_CHANNELS, padded_to=RANKS,
+        loss=[got["terms"]["loss"], loss],
+        max_param_gap=worst_c, grad_rel_l2=rel_c,
+        grad_rel_l2_worst_tensor=worst_grad_c,
+        s_per_step=[res["c"]["s_per_step"] for res in results],
+        max_memory_allocated_bytes=[res["c"]["max_memory_allocated_bytes"]
+                                    for res in results])
+
+    # d
+    p, q, far, ones = ot_frames(dev)
+    ot_ref = float(ot_with_time_mask(p, q, ones, "sum"))
+    mmd_ref = float(mmd_with_time_mask(p, far, ones, "sum"))
+    d = r0["d"]
+    if abs(d["ot"] - ot_ref) > 1e-4 * abs(ot_ref):
+        raise AssertionError(f"sharded OT {d['ot']} vs {ot_ref}")
+    if abs(d["mmd"] - mmd_ref) > 1e-4 * abs(mmd_ref) + 1e-6:
+        raise AssertionError(f"sharded MMD {d['mmd']} vs {mmd_ref}")
+    say("parallel_ot_mmd", frames=OT_FRAMES, ot=[d["ot"], ot_ref],
+        mmd=[d["mmd"], mmd_ref], sinkhorn_iterations=d["sinkhorn_iterations"],
+        ot_ms_per_frame=[res["d"]["ot_ms_per_frame"] for res in results],
+        mmd_ms_per_frame=[res["d"]["mmd_ms_per_frame"] for res in results])
+
+    # e
+    cfg_tp, model_tp, rows, ft_tp = tp_models(dev)
+    with torch.no_grad():
+        fwd = model_tp(*rows).pred_acc
+    e = r0["e"]
+    if not torch.allclose(e["forward"].to(dev), fwd, rtol=1e-5, atol=1e-6):
+        raise AssertionError("TP forward differs from the replicated one")
+    from piml_tpu_torch.train.trainer import make_optimizer
+
+    opt = make_optimizer(cfg_tp, ft_tp.parameters(), finetune=True)
+    loss = one_step(cfg_tp, ft_tp, opt, dense_batch(dev)).loss.item()
+    if abs(e["loss"] - loss) > 2e-4 * abs(loss):
+        raise AssertionError(f"dp x tp loss {e['loss']} vs {loss}")
+    worst_e = close_params(e["params"], ft_tp.state_dict(), 5e-4, 5e-5,
+                           "dp x tp step")
+    say("parallel_tp", mesh=[2, 2], rows=TP_ROWS,
+        forward_max_gap=float((e["forward"].to(dev) - fwd).abs().max()),
+        loss=[e["loss"], loss], max_param_gap=worst_e)
+
+    rec = dict(passes[0])
+    for key in ("features", "ring"):
+        rec.pop(key)
+    rec.update(ms_ranks=[p["ms"] for p in passes],
+               plain_ms_ranks=[p["plain_ms"] for p in passes],
+               # the sharded caller's own launches; the rollout's initial
+               # frame runs the single-device K2 passes on every rank
+               launches_ranks=[res["b"]["k2_launches"] - one_device_launches
+                               for res in results],
+               launches_initial_frame_ranks=[one_device_launches] * RANKS,
+               max_abs_err=max(p["max_abs_err"] for p in passes))
+    return rec
+
+
 
 def main():
     import torch
@@ -2248,6 +2745,9 @@ def main():
     # ---- 17. the one-chip scale ceiling -------------------------------------
     scale = scale_ceiling(dev, model)
 
+    # ---- 18. the parallel layer: ranks sharing the card --------------------
+    shard = parallel_layer(dev)
+
     kernels = [
         dict(name="pairwise_topk (K1)", route="cuda",
              source="piml_tpu_torch/csrc/pairwise_topk.cu",
@@ -2271,6 +2771,11 @@ def main():
              launches_scale_ceiling=scale["k2"],
              launches_wide_fallback=scale["wide_calls"],
              half_grid_pass=scale["half_grid"], **record["k2"]),
+        dict(name="banded_topk (K2), agent-sharded caller", route="cuda",
+             source="piml_tpu_torch/csrc/banded_topk.cu",
+             replaces="piml_tpu/parallel/agent_shard.py:286",
+             launches=sum(shard["launches_ranks"]), library_ms=None,
+             **shard),
     ]
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -17,6 +17,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import fcntl
 import hashlib
 import os
 import shutil
@@ -60,12 +61,16 @@ class KernelCount:
     counts the half-grid banded passes that replace that dense path past
     its column ceiling, and ``wide_relaxed`` those of them whose result was
     used without an exactness proof (``physics/features.py``
-    ``_banded_wide_fallback``)."""
+    ``_banded_wide_fallback``); ``sharded_calls`` counts the agent-sharded
+    banded passes (``parallel/agent_shard.py``
+    ``sharded_banded_features``), whose ring fallbacks count in
+    ``fallbacks``."""
 
     launches: int = 0
     fallbacks: int = 0
     wide_calls: int = 0
     wide_relaxed: int = 0
+    sharded_calls: int = 0
 
 
 class _Library:
@@ -94,9 +99,13 @@ class _Library:
         out_dir = BUILD_ROOT / h.hexdigest()[:16]
         path = out_dir / LIB_NAME
         t0 = time.perf_counter()
-        if not path.exists():
-            out_dir.mkdir(parents=True, exist_ok=True)
-            _compile(sources, out_dir, path)
+        out_dir.mkdir(parents=True, exist_ok=True)
+        # several processes of one host (the ranks of spawn_local) may reach
+        # a first build together: one builds, the others wait on the lock
+        with open(out_dir / "build.lock", "w") as lock:
+            fcntl.flock(lock, fcntl.LOCK_EX)
+            if not path.exists():
+                _compile(sources, out_dir, path)
         self.build_seconds = time.perf_counter() - t0
         self.path = path
         lib = ctypes.CDLL(str(path))

@@ -35,7 +35,7 @@ from piml_tpu_torch.physics import (
     heading_direction,
     relative_features,
 )
-from piml_tpu_torch.physics.features import prepare_obstacle_index
+from piml_tpu_torch.physics.features import _GATE, prepare_obstacle_index
 
 
 @dataclasses.dataclass(frozen=True)
@@ -52,6 +52,11 @@ class EngineConfig:
     remat: bool = True              # checkpoint each frame under autograd
                                     # (batched_rollout; jax.checkpoint in
                                     # the JAX package)
+    shard_agents: bool = False      # agent-sharded pair pass over a mesh
+                                    # (parallel/agent_shard.py): sharded K2
+                                    # when use_grid_topk and N² ≥ 2^21,
+                                    # else the ring pass; N must divide the
+                                    # mesh axis
 
 
 @dataclasses.dataclass
@@ -105,20 +110,41 @@ def select_waypoint(waypoints: torch.Tensor,
 
 
 def make_features_fn(cfg: EngineConfig, obstacles: torch.Tensor,
-                     desired_speed: torch.Tensor, obstacle_index=None):
+                     desired_speed: torch.Tensor, obstacle_index=None,
+                     mesh=None, mesh_axis: str = "ap"):
     """The per-step feature rebuild ``(p, v, a, dest, hist_v, k1, k2) ->
     (ped_f, obs_f, self_f)`` with a single-frame heading, for ``(N, 2)``
     frames or ``(C, N, 2)`` batches of frames (the channel-batched banded
-    route of ``relative_features``)."""
+    route of ``relative_features``).
+
+    ``cfg.shard_agents`` shards the pair pass of an ``(N, 2)`` frame over
+    ``mesh``'s ``mesh_axis`` (``parallel/agent_shard.py``), with the JAX
+    package's gate (piml_tpu/engine/rollout.py:168-172) less its "on a
+    TPU" condition, as the single-device route drops it: K2 under
+    sharding when ``use_grid_topk`` and N² ≥ 2^21 (on the CPU, its plain
+    version), else the ring pass."""
+    if cfg.shard_agents and mesh is None:
+        raise ValueError("EngineConfig.shard_agents requires a mesh")
 
     def features_for(p, v, a, dest, hist_v, k1, k2):
         # k1/k2 keep the neighbour axes at the dataset-seeded widths
         ncfg = cfg.neighbor._replace(topk_ped=k1, topk_obs=k2)
-        v0 = torch.where(torch.isnan(v), 0.0, v)
-        ped_f, obs_f, dest_f = relative_features(
-            p, v, a, dest, obstacles, ncfg,
-            heading=heading_direction(v0, time_axis=False),
-            obstacle_index=obstacle_index, batched=p.ndim == 3)
+        if cfg.shard_agents:
+            from piml_tpu_torch.parallel import agent_shard
+
+            if p.ndim != 2:
+                raise ValueError("shard_agents takes one (N, 2) frame")
+            sharded = (agent_shard.sharded_banded_features
+                       if ncfg.use_grid_topk and p.shape[0] ** 2 >= _GATE
+                       else agent_shard.sharded_relative_features)
+            ped_f, obs_f, dest_f = sharded(p, v, a, dest, obstacles, ncfg,
+                                           mesh, mesh_axis)
+        else:
+            v0 = torch.where(torch.isnan(v), 0.0, v)
+            ped_f, obs_f, dest_f = relative_features(
+                p, v, a, dest, obstacles, ncfg,
+                heading=heading_direction(v0, time_axis=False),
+                obstacle_index=obstacle_index, batched=p.ndim == 3)
         ds = desired_speed.expand(p.shape[:-1] + desired_speed.shape[-1:])
         self_f = torch.cat([dest_f, hist_v, a, ds], dim=-1)
         return ped_f, obs_f, self_f
@@ -128,7 +154,8 @@ def make_features_fn(cfg: EngineConfig, obstacles: torch.Tensor,
 
 def make_step(model: Callable, cfg: EngineConfig, waypoints: torch.Tensor,
               dest_num: torch.Tensor, obstacles: torch.Tensor,
-              desired_speed: torch.Tensor, obstacle_index=None):
+              desired_speed: torch.Tensor, obstacle_index=None, mesh=None,
+              mesh_axis: str = "ap"):
     """Build the step ``(state, spawn, seeds=None) -> (state, outputs)``
     for an ``(N, ...)`` state or a ``(C, N, ...)`` batch of window
     channels; ``model`` maps ``(ped_f, obs_f, self_f[, rng])`` to a
@@ -136,10 +163,12 @@ def make_step(model: Callable, cfg: EngineConfig, waypoints: torch.Tensor,
 
     ``seeds`` (one int per channel) makes the step stochastic: the model's
     dropout draws from generators seeded with them (the JAX package's
-    per-frame, per-channel dropout keys)."""
+    per-frame, per-channel dropout keys).  ``mesh``: see
+    :func:`make_features_fn`."""
     dt = cfg.time_unit
     features_for = make_features_fn(cfg, obstacles, desired_speed,
-                                    obstacle_index=obstacle_index)
+                                    obstacle_index=obstacle_index,
+                                    mesh=mesh, mesh_axis=mesh_axis)
 
     def step(state: EngineState, spawn: SpawnFrame,
              seeds: Optional[Sequence[int]] = None):
@@ -244,12 +273,17 @@ def _obstacle_index(cfg: EngineConfig, state: EngineState,
 def rollout(model: Callable, cfg: EngineConfig, state: EngineState,
             spawns: SpawnFrame, waypoints: torch.Tensor,
             dest_num: torch.Tensor, obstacles: torch.Tensor,
-            desired_speed: torch.Tensor):
+            desired_speed: torch.Tensor, mesh=None, mesh_axis: str = "ap"):
     """Run ``T_roll = spawns.new.shape[0]`` steps from ``state``; returns
-    ``(final_state, StepOutputs)`` with time-major outputs."""
+    ``(final_state, StepOutputs)`` with time-major outputs.  With
+    ``cfg.shard_agents`` the pair pass runs sharded over ``mesh`` (every
+    rank passes and gets the whole state), and no obstacle index is
+    prebuilt: the sharded passes select obstacles densely."""
     step = make_step(model, cfg, waypoints, dest_num, obstacles,
                      desired_speed,
-                     obstacle_index=_obstacle_index(cfg, state, obstacles))
+                     obstacle_index=(None if cfg.shard_agents else
+                                     _obstacle_index(cfg, state, obstacles)),
+                     mesh=mesh, mesh_axis=mesh_axis)
     outs: List[StepOutputs] = []
     for t in range(spawns.new.shape[0]):
         state, o = step(state, SpawnFrame(*(x[t] for x in spawns)))

@@ -15,7 +15,7 @@ import torch
 
 from piml_tpu_torch.config import PIMLConfig
 from piml_tpu_torch.data.views import (ChanneledData, TimeIndexedData,
-                                       neighbor_config)
+                                       neighbor_config, pad_agents)
 from piml_tpu_torch.engine.rollout import (
     EngineConfig,
     SpawnFrame,
@@ -32,7 +32,8 @@ from piml_tpu_torch.train import losses
 
 
 def engine_config(cfg: PIMLConfig, *, retire: bool, track_collisions: bool,
-                  track_labels: bool) -> EngineConfig:
+                  track_labels: bool,
+                  shard_agents: bool = False) -> EngineConfig:
     return EngineConfig(
         neighbor=neighbor_config(cfg),
         time_unit=cfg.time_unit,
@@ -41,6 +42,7 @@ def engine_config(cfg: PIMLConfig, *, retire: bool, track_collisions: bool,
         track_collisions=track_collisions,
         collision_threshold=cfg.collision_threshold,
         track_collision_labels=track_labels,
+        shard_agents=shard_agents,
     )
 
 
@@ -53,9 +55,15 @@ class RolloutResult(NamedTuple):
 
 @torch.inference_mode()
 def eval_rollout(model: Callable, ecfg: EngineConfig, data: TimeIndexedData,
-                 t_start: int) -> RolloutResult:
+                 t_start: int, mesh=None,
+                 mesh_axis: str = "ap") -> RolloutResult:
     """Closed-loop rollout from ``t_start`` with ground-truth teleport-in
-    and arrival retirement; returns full dense trajectories."""
+    and arrival retirement; returns full dense trajectories.
+
+    With ``ecfg.shard_agents`` and a ``mesh``, every frame's pair pass runs
+    agent-sharded over ``mesh_axis`` (N must divide the axis: pad with
+    ``data.views.pad_agents``); every rank passes the whole scene and
+    gets the whole result."""
     state = init_state(
         p=data.position[t_start], v=data.velocity[t_start],
         a=data.acceleration[t_start], dest=data.destination[t_start],
@@ -69,7 +77,8 @@ def eval_rollout(model: Callable, ecfg: EngineConfig, data: TimeIndexedData,
     take = type(spawns)(*(x[: data.num_frames - t_start] for x in spawns))
     _, outs = rollout(model, ecfg, state, take, data.waypoints,
                       data.dest_num, data.obstacles,
-                      data.desired_speed[:, None])
+                      data.desired_speed[:, None], mesh=mesh,
+                      mesh_axis=mesh_axis)
 
     def prefix(gt, roll):
         return torch.cat([gt[:t_start], roll], dim=0)
@@ -108,16 +117,21 @@ class RolloutMetrics:
 
 @torch.inference_mode()
 def evaluate_rollouts(model: Callable, cfg: PIMLConfig, datasets, *,
-                      test_flag: bool = True) -> RolloutMetrics:
+                      test_flag: bool = True, mesh=None,
+                      mesh_axis: str = "ap") -> RolloutMetrics:
     """Rollout + metrics over a list of scenes (reference:
     simulators.py:465-554, list branch).
 
     Reports ``loss``, ``mse``, ``mae`` (per predictable row), ``ot`` and
     ``mmd`` (per frame with predictable agents; ``mae``, ``ot`` and
     ``mmd`` under ``test_flag`` only, 0 otherwise) and the soft / hard
-    ``collision`` counts.  One host read per scene."""
+    ``collision`` counts.  One host read per scene.
+
+    ``mesh``: agent-shard each rollout's pair pass over ``mesh_axis``; the
+    scenes are padded to the axis with inert agents (``pad_agents``), which
+    leave every metric unchanged."""
     ecfg = engine_config(cfg, retire=True, track_collisions=False,
-                         track_labels=False)
+                         track_labels=False, shard_agents=mesh is not None)
     if isinstance(datasets, TimeIndexedData):
         datasets = [datasets]
 
@@ -125,7 +139,12 @@ def evaluate_rollouts(model: Callable, cfg: PIMLConfig, datasets, *,
     coll_sum = hard_sum = loss_sum = 0.0
     n_rows = n_frames = 0
     for data in datasets:
-        res = eval_rollout(model, ecfg, data, cfg.skip_frames)
+        if mesh is not None:
+            from piml_tpu_torch.parallel.sharding import axis_size
+
+            data = pad_agents(data, axis_size(mesh, mesh_axis))
+        res = eval_rollout(model, ecfg, data, cfg.skip_frames, mesh=mesh,
+                           mesh_axis=mesh_axis)
         t0 = cfg.skip_frames
         coll = collision_count(res.position[t0:], cfg.collision_threshold)
         hard = collision_count(res.position[t0:],
@@ -196,7 +215,9 @@ def _channel_spawns(batch: ChanneledData) -> SpawnFrame:
 
 def training_rollout_loss(model: Callable, cfg: PIMLConfig,
                           batch: ChanneledData,
-                          generator: Optional[torch.Generator] = None
+                          generator: Optional[torch.Generator] = None, *,
+                          seeds: Optional[torch.Tensor] = None,
+                          total: Optional[Callable] = None
                           ) -> TrainingRolloutLoss:
     """The finetune loss through the differentiable rollout of every
     window channel (simulators.py:781-832): time-decayed rollout MSE,
@@ -207,7 +228,12 @@ def training_rollout_loss(model: Callable, cfg: PIMLConfig,
 
     ``generator``: when given, dropout is live — one seed per frame and
     channel is drawn from it before the rollout (the reference finetunes
-    under ``model.train()``, simulators.py:295).
+    under ``model.train()``, simulators.py:295).  ``seeds``: the ``(C, T)``
+    seed table itself, in place of ``generator`` (a data-parallel rank's
+    rows of the global table, ``parallel/sharding.py``).  ``total``: maps a
+    count over this batch's channels to the count over every rank's
+    channels (an all-reduce); the collision-head accuracy, the one term
+    that divides by a count, divides by it.  Every loss term is a sum.
 
     Routing is the JAX package's, with "TPU" read as "CUDA tensor": at
     dense N on the card the feature pass takes the channel-batched banded
@@ -238,7 +264,6 @@ def training_rollout_loss(model: Callable, cfg: PIMLConfig,
         ecfg = dataclasses.replace(
             ecfg, neighbor=ecfg.neighbor._replace(use_grid_topk=False))
 
-    seeds = None
     if generator is not None:
         seeds = torch.randint(0, 2 ** 62, (C, T), generator=generator)
     state0 = init_state(
@@ -314,7 +339,8 @@ def training_rollout_loss(model: Callable, cfg: PIMLConfig,
         true_c = outs.true_coll * live[..., None]
         cp_loss = losses.binary_cross_entropy(
             pred_c, true_c, "sum") * cfg.collision_pred_weight
-        n_live = torch.clamp_min(live.sum(), 1.0) * outs.coll_pred.shape[-1]
+        n_live = live.sum() if total is None else total(live.sum())
+        n_live = torch.clamp_min(n_live, 1.0) * outs.coll_pred.shape[-1]
         cp_acc = ((torch.round(pred_c) == true_c).to(pred_c.dtype)
                   * live[..., None]).sum() / n_live
         loss = loss + cp_loss

@@ -54,9 +54,12 @@ def _identity(x):
 
 def dense(layer: nn.Linear, x: torch.Tensor,
           dtype: Optional[torch.dtype] = None) -> torch.Tensor:
-    """``layer`` applied with flax ``nn.Dense`` dtype semantics (above)."""
+    """``layer`` applied with flax ``nn.Dense`` dtype semantics (above).
+    A tensor-parallel shard (``parallel/tensor_parallel.py``) brings its
+    own product, with its collectives."""
     dt = dtype or torch.promote_types(x.dtype, layer.weight.dtype)
-    return F.linear(x.to(dt), layer.weight.to(dt), layer.bias.to(dt))
+    linear = getattr(layer, "linear", F.linear)
+    return linear(x.to(dt), layer.weight.to(dt), layer.bias.to(dt))
 
 
 class MLP(nn.Module):
@@ -99,16 +102,32 @@ class ResBlock(nn.Module):
         return x + self.MLP_0(x)
 
 
-Rng = Optional[Union[torch.Generator, Sequence[torch.Generator]]]
+class RowShard:
+    """Dropout for one shard of a row batch: each mask is drawn at the
+    whole batch's shape, ``(rows, ...)``, from ``generator`` (in the same
+    state on every shard), and the shard keeps its rows ``start`` onwards,
+    so its masks are the rows of one device's."""
+
+    def __init__(self, generator: torch.Generator, rows: int, start: int):
+        self.generator, self.rows, self.start = generator, rows, start
+
+
+Rng = Optional[Union[torch.Generator, RowShard, Sequence[torch.Generator]]]
 
 
 def dropout(x: torch.Tensor, p: float, rng: Rng) -> torch.Tensor:
     """Inverted dropout as flax's ``nn.Dropout``: keep with probability
     ``1 − p`` and scale by ``1 / (1 − p)``.  ``rng``: one generator for
-    the whole tensor (the pretrain's row batches), or one per slice of the
-    leading axis, each slice's mask from its own stream; None = identity."""
+    the whole tensor (the pretrain's row batches), a :class:`RowShard` of
+    it, or one per slice of the leading axis, each slice's mask from its
+    own stream; None = identity."""
     if rng is None or p <= 0:
         return x
+    if isinstance(rng, RowShard):
+        keep = torch.bernoulli(
+            torch.full((rng.rows,) + x.shape[1:], 1.0 - p, device=x.device),
+            generator=rng.generator).narrow(0, rng.start, x.shape[0])
+        return torch.where(keep > 0, x / (1.0 - p), 0.0)
     if isinstance(rng, torch.Generator):
         keep = torch.bernoulli(torch.full(x.shape, 1.0 - p, device=x.device),
                                generator=rng)

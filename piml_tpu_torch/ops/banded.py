@@ -302,9 +302,9 @@ class _Sorted(NamedTuple):
 
 def _sort_into_tiles(position, heading, index: ObjectIndex, g: int,
                      window: int, same_objects: bool,
-                     agent_order) -> _Sorted:
+                     agent_order, self_ids=None) -> _Sorted:
     n = position.shape[0]
-    rows_unsorted = pack_rows(position, heading)
+    rows_unsorted = pack_rows(position, heading, self_ids)
     pos = rows_unsorted[:, 0:2]
     pos_valid = rows_unsorted[:, 4] > 0.5
     offsets, lo, cs = index.offsets, index.lo, index.cs
@@ -376,13 +376,15 @@ def _exact(srt: _Sorted, top_d: torch.Tensor, index: ObjectIndex, g: int,
 @torch.no_grad()
 def _banded(position, heading, k_eff: int, angle_threshold: float,
             same_objects: bool, g: int, window: int,
-            dist_threshold: Optional[float], indexes, agent_orders):
+            dist_threshold: Optional[float], indexes, agent_orders,
+            self_ids=None):
     """Shared body of both selectors over ``(C, N, 2)`` frames: the
     host-side sort per channel, ONE kernel launch for all channels, then
-    the un-sort and the exactness predicate per channel."""
+    the un-sort and the exactness predicate per channel.  ``self_ids``
+    (single frame only): the rows' ids in the object table's id space."""
     chans = position.shape[0]
     srts = [_sort_into_tiles(position[c], heading[c], indexes[c], g, window,
-                             same_objects, agent_orders[c])
+                             same_objects, agent_orders[c], self_ids)
             for c in range(chans)]
     shared = all(ix is indexes[0] for ix in indexes)
 
@@ -399,7 +401,8 @@ def _banded(position, heading, k_eff: int, angle_threshold: float,
     out_d, out_i = banded_topk(
         torch.stack([s_.ws for s_ in srts]), geo,
         torch.stack([s_.rows for s_ in srts]), cols, window, g, k_eff,
-        cos_threshold(angle_threshold), same_objects, offsets)
+        cos_threshold(angle_threshold),
+        same_objects or self_ids is not None, offsets)
     n = position.shape[1]
     top_d = torch.stack([out_d[c, :n][s_.inv] for c, s_ in enumerate(srts)])
     top_i = torch.stack([out_i[c, :n][s_.inv] for c, s_ in enumerate(srts)])
@@ -430,6 +433,7 @@ def topk_neighbors_banded(
     dist_threshold: Optional[float] = None,
     index: Optional[ObjectIndex] = None,
     agent_order: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+    self_ids: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Banded FOV top-k: ``(dist (N, k'), idx (N, k'), exact ())``.
 
@@ -437,7 +441,11 @@ def topk_neighbors_banded(
     ``exact`` flag.  ``index``: a prebuilt :func:`build_object_index` for a
     static object table (``objects`` then only gives its shape).
     ``agent_order``: a precomputed ``(order, inverse)`` agent sort shared
-    between the passes of one frame.
+    between the passes of one frame.  ``self_ids``: each query's id in the
+    object table (the queries are a shard of it, as in
+    ``parallel/agent_shard.py``), so that its self pair gets the dense
+    kernel's pinned ``(d2, rel_h) = (0, 0)`` although ``same_objects`` is
+    False (piml_tpu/ops/banded.py:385).
     """
     if objects is None:
         objects = position
@@ -450,7 +458,7 @@ def topk_neighbors_banded(
     _check_index(index, m, g, window)
     d, i, ex = _banded(position[None], heading[None],
                        min(k, m), angle_threshold, same_objects, g, window,
-                       dist_threshold, [index], [agent_order])
+                       dist_threshold, [index], [agent_order], self_ids)
     return d[0], i[0], ex[0]
 
 

@@ -44,16 +44,20 @@ def cos_threshold(angle_threshold: float) -> float:
     return float(np.float32(math.cos(3.14 * angle_threshold / 180.0)))
 
 
-def pack_rows(position: torch.Tensor, heading: torch.Tensor) -> torch.Tensor:
+def pack_rows(position: torch.Tensor, heading: torch.Tensor,
+              ids: Optional[torch.Tensor] = None) -> torch.Tensor:
     """(N, 2) agents → (N, 8) ``[x, y, hx, hy, valid, id, 0, 0]``; absent
-    agents get zero coordinates and ``valid = 0``."""
+    agents get zero coordinates and ``valid = 0``.  ``ids``: each row's id
+    in the object table's id space (default ``arange(N)``), as f32: exact
+    below 2^24."""
     n = position.shape[0]
     valid = torch.isfinite(position).all(dim=-1)
     rows = torch.zeros((n, 8), dtype=torch.float32, device=position.device)
     rows[:, 0:2] = torch.where(valid[:, None], position, 0.0)
     rows[:, 2:4] = torch.where(torch.isfinite(heading), heading, 0.0)
     rows[:, 4] = valid.float()
-    rows[:, 5] = torch.arange(n, dtype=torch.float32, device=position.device)
+    rows[:, 5] = (torch.arange(n, dtype=torch.float32, device=position.device)
+                  if ids is None else ids.to(torch.float32))
     return rows
 
 

@@ -8,14 +8,13 @@ reads the host once per epoch (the summed loss terms and the validation
 MSE together); the finetune once per batch.  Shuffling and dropout depend
 only on ``(seed, epoch)``, so a run resumed from its last full training
 state (``train/checkpoint.py``) continues bit for bit.  Both loops run on
-the device their data lies on.
-
-Not ported yet (ROADMAP.md): channel data parallelism; ``n_devices > 1``
-raises in :meth:`Trainer.finetune`.
+the device their data lies on.  ``cfg.n_devices > 1`` runs the finetune
+channel data-parallel over that many ranks (``parallel/sharding.py``).
 """
 
 from __future__ import annotations
 
+import math
 import os
 import time
 from dataclasses import dataclass
@@ -23,6 +22,7 @@ from typing import Any, Dict, List, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from piml_tpu_torch.config import PIMLConfig
 from piml_tpu_torch.data.datasets import channel_batches
@@ -32,6 +32,8 @@ from piml_tpu_torch.engine.simulator import (evaluate_rollouts,
                                              training_rollout_loss)
 from piml_tpu_torch.models import (ModelSpec, build_finetune_model,
                                    build_model, pretrain_model_name)
+from piml_tpu_torch.parallel.sharding import (make_dp_finetune_step,
+                                              make_mesh, replicate)
 from piml_tpu_torch.physics import forces
 from piml_tpu_torch.train import checkpoint as ckpt
 from piml_tpu_torch.train import losses
@@ -185,6 +187,22 @@ def _epoch_generator(seed: int, stream: int, epoch: int,
     """The dropout stream of one epoch: a function of (seed, epoch) only."""
     return torch.Generator(device=device).manual_seed(
         (seed + stream) * 1_000_003 + epoch)
+
+
+def _check_group(n_devices: int) -> bool:
+    """Whether the finetune runs data-parallel (``n_devices > 1``); raises
+    unless this process is a rank of a group of exactly ``n_devices``."""
+    if n_devices <= 1:
+        return False
+    if not dist.is_initialized() or dist.get_world_size() != n_devices:
+        have = (f"a group of {dist.get_world_size()}"
+                if dist.is_initialized() else "no process group")
+        raise RuntimeError(
+            f"n_devices={n_devices} runs channel data parallelism over "
+            f"{n_devices} ranks, but this process has {have}: launch it "
+            f"with torchrun --nproc_per_node={n_devices} and call "
+            "parallel.init_distributed(), or with parallel.spawn_local")
+    return True
 
 
 class Trainer:
@@ -378,13 +396,18 @@ class Trainer:
         ``train_scenes`` (the windowed scenes), batched here as
         ``channel_batches(train_scenes, cfg.ft_batch_size,
         RandomState(cfg.seed), shuffle)``.  Everything runs on the device
-        of the batches; ``cfg.n_devices > 1`` raises (the JAX package
-        shards the channels over a mesh there)."""
+        of the batches.
+
+        ``cfg.n_devices > 1``: channel data parallelism (the JAX package's
+        ``piml_tpu/train/trainer.py:601-652``) over a process group of
+        exactly that many ranks (``torchrun --nproc_per_node=N``, or
+        ``parallel.spawn_local``), each passing the same batches on its own
+        device: every batch's channels are padded to the ranks and split
+        over them, the gradients summed (:func:`make_dp_finetune_step`);
+        rank 0 alone validates (its loss is broadcast), tests and writes
+        checkpoints, and the parameters stay the same on every rank."""
         cfg = self.cfg
-        if cfg.n_devices > 1:
-            raise NotImplementedError(
-                "channel data parallelism over n_devices > 1 is not ported "
-                "to PyTorch yet (ROADMAP.md Queue 1, the parallel layer)")
+        data_parallel = _check_group(cfg.n_devices)
         if (train_batches is None) == (train_scenes is None):
             raise ValueError("pass exactly one of train_batches / "
                              "train_scenes")
@@ -410,13 +433,32 @@ class Trainer:
         self.model = model
         opt = make_optimizer(cfg, model, finetune=True)
         state = TrainState(params=model.state_dict(), opt_state={})
+        mesh, lead = None, True
+        if data_parallel:
+            self.logger.info(f"finetune: channel-DP over {cfg.n_devices} "
+                             "ranks")
+            mesh = make_mesh(cfg.n_devices, "dp", device=device.type)
+            lead = dist.get_rank() == 0
+            replicate(model, mesh)
+            dp_step = make_dp_finetune_step(cfg, model, opt, mesh)
 
         def validate() -> float:
-            m = evaluate_rollouts(model, cfg, valid_data, test_flag=False)
-            self.logger.log(val_loss=m.loss, val_mse=m.mse,
-                            val_coll=m.collision,
-                            val_hard_coll=m.hard_collision)
-            return m.loss
+            loss = math.nan
+            if lead:
+                m = evaluate_rollouts(model, cfg, valid_data,
+                                      test_flag=False)
+                self.logger.log(val_loss=m.loss, val_mse=m.mse,
+                                val_coll=m.collision,
+                                val_hard_coll=m.hard_collision)
+                loss = m.loss
+            if mesh is not None:        # rank 0's loss on every rank
+                loss = float(replicate(torch.tensor(
+                    loss, dtype=torch.float64, device=device), mesh))
+            return loss
+
+        def save(path, params):
+            if lead:
+                save_params(path, params)
 
         patience_limit = (cfg.patience if cfg.compat_swapped_patience
                           else cfg.ft_patience)
@@ -429,7 +471,7 @@ class Trainer:
         else:
             # epoch-0 checkpoint and baseline validation
             # (simulators.py:298-304)
-            save_params(ck_path, model.state_dict())
+            save(ck_path, model.state_dict())
             best_params = _snapshot(model)
             state.best_val = validate()
         n_train = max(sum(int((b.mask_p_pred == 1).sum())
@@ -447,10 +489,14 @@ class Trainer:
                 gen = _epoch_generator(cfg.seed, 1, epoch,
                                        torch.device("cpu"))
             for batch in train_batches:
-                out = training_rollout_loss(model, cfg, batch, generator=gen)
-                opt.zero_grad(set_to_none=True)
-                out.loss.backward()
-                opt.step()
+                if mesh is not None:
+                    out = dp_step(batch, gen)
+                else:
+                    out = training_rollout_loss(model, cfg, batch,
+                                                generator=gen)
+                    opt.zero_grad(set_to_none=True)
+                    out.loss.backward()
+                    opt.step()
                 # one host read per batch
                 vals = torch.stack([
                     out.collision_count, out.hard_collision_count,
@@ -470,7 +516,7 @@ class Trainer:
             val_loss = validate()
             if val_loss < state.best_val:
                 self.logger.info(f"model saved at epoch {epoch}")
-                save_params(ck_path, model.state_dict())
+                save(ck_path, model.state_dict())
                 best_params = _snapshot(model)
                 state.best_val = val_loss
                 state.patience = 0
@@ -478,7 +524,8 @@ class Trainer:
                 state.patience += 1
                 if state.patience > patience_limit:
                     break
-            if cfg.resume and epoch % max(cfg.resume_every, 1) == 0:
+            if (cfg.resume and epoch % max(cfg.resume_every, 1) == 0
+                    and lead):
                 _save_resumable(cfg, state, model, opt, True)
 
         # the reference evaluates the best-validation checkpoint
@@ -486,7 +533,7 @@ class Trainer:
         model.load_state_dict(best_params)
         state.params = _snapshot(model)
         state.opt_state = opt.state_dict()
-        if test_data:
+        if test_data and lead:
             m = evaluate_rollouts(model, cfg, test_data, test_flag=True)
             self.logger.log(test_loss=m.loss, test_mse=m.mse, test_mae=m.mae,
                             test_ot=m.ot, test_mmd=m.mmd,

@@ -237,6 +237,7 @@ def test_port_imports_no_jax():
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'optax', 'piml_tpu')]\n"
         "assert not bad, bad\n"
+        "assert 'piml_tpu_torch.parallel.agent_shard' in sys.modules\n"
         "print('ok', len([m for m in sys.modules "
         "if m.startswith('piml_tpu_torch')]))\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,

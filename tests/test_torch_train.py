@@ -528,11 +528,14 @@ def test_trainer_finetune_two_epochs_on_cpu(gc_windows, tmp_path):
 
 
 def test_finetune_refuses_several_devices():
-    """The JAX package shards the finetune's channels over ``n_devices``;
-    the port has no channel data parallelism yet and says so."""
+    """``n_devices > 1`` shards the finetune's channels over a process
+    group of that many ranks (``tests/test_torch_parallel.py`` runs it);
+    without one it raises and names the launcher, before it reads any
+    batch, rather than run on one device."""
     trainer = Trainer(PIMLConfig(**CFG, n_devices=2),
                       MetricLogger(stream=open(os.devnull, "w")))
-    with pytest.raises(NotImplementedError, match="n_devices"):
+    with pytest.raises(RuntimeError,
+                       match=r"n_devices=2 .* torchrun --nproc_per_node=2"):
         trainer.finetune(train_batches=[])
 
 
