@@ -12,7 +12,9 @@ src/models/simulators.py:595-652).  Per frame:
 - the neighbour features are rebuilt for the next frame.
 
 The frame loop is plain Python; the banded selector's exactness flag is
-read on the host once per pass.  :func:`rollout` runs it under
+read on the host once per pass.  Under ``torch.profiler`` each call, frame,
+model call, feature pass and contact count is a span
+(``utils/profiling.py``).  :func:`rollout` runs it under
 ``torch.inference_mode()`` (evaluation); :func:`batched_rollout` runs the
 same step on a ``(C, N, ...)`` batch of window channels with autograd on
 (the BPTT finetune), optionally checkpointing each frame.  The JAX
@@ -36,6 +38,7 @@ from piml_tpu_torch.physics import (
     relative_features,
 )
 from piml_tpu_torch.physics.features import _GATE, prepare_obstacle_index
+from piml_tpu_torch.utils.profiling import annotate
 
 
 @dataclasses.dataclass(frozen=True)
@@ -127,27 +130,28 @@ def make_features_fn(cfg: EngineConfig, obstacles: torch.Tensor,
         raise ValueError("EngineConfig.shard_agents requires a mesh")
 
     def features_for(p, v, a, dest, hist_v, k1, k2):
-        # k1/k2 keep the neighbour axes at the dataset-seeded widths
-        ncfg = cfg.neighbor._replace(topk_ped=k1, topk_obs=k2)
-        if cfg.shard_agents:
-            from piml_tpu_torch.parallel import agent_shard
+        with annotate("frame.features"):
+            # k1/k2 keep the neighbour axes at the dataset-seeded widths
+            ncfg = cfg.neighbor._replace(topk_ped=k1, topk_obs=k2)
+            if cfg.shard_agents:
+                from piml_tpu_torch.parallel import agent_shard
 
-            if p.ndim != 2:
-                raise ValueError("shard_agents takes one (N, 2) frame")
-            sharded = (agent_shard.sharded_banded_features
-                       if ncfg.use_grid_topk and p.shape[0] ** 2 >= _GATE
-                       else agent_shard.sharded_relative_features)
-            ped_f, obs_f, dest_f = sharded(p, v, a, dest, obstacles, ncfg,
-                                           mesh, mesh_axis)
-        else:
-            v0 = torch.where(torch.isnan(v), 0.0, v)
-            ped_f, obs_f, dest_f = relative_features(
-                p, v, a, dest, obstacles, ncfg,
-                heading=heading_direction(v0, time_axis=False),
-                obstacle_index=obstacle_index, batched=p.ndim == 3)
-        ds = desired_speed.expand(p.shape[:-1] + desired_speed.shape[-1:])
-        self_f = torch.cat([dest_f, hist_v, a, ds], dim=-1)
-        return ped_f, obs_f, self_f
+                if p.ndim != 2:
+                    raise ValueError("shard_agents takes one (N, 2) frame")
+                sharded = (agent_shard.sharded_banded_features
+                           if ncfg.use_grid_topk and p.shape[0] ** 2 >= _GATE
+                           else agent_shard.sharded_relative_features)
+                ped_f, obs_f, dest_f = sharded(p, v, a, dest, obstacles, ncfg,
+                                               mesh, mesh_axis)
+            else:
+                v0 = torch.where(torch.isnan(v), 0.0, v)
+                ped_f, obs_f, dest_f = relative_features(
+                    p, v, a, dest, obstacles, ncfg,
+                    heading=heading_direction(v0, time_axis=False),
+                    obstacle_index=obstacle_index, batched=p.ndim == 3)
+            ds = desired_speed.expand(p.shape[:-1] + desired_speed.shape[-1:])
+            self_f = torch.cat([dest_f, hist_v, a, ds], dim=-1)
+            return ped_f, obs_f, self_f
 
     return features_for
 
@@ -172,82 +176,87 @@ def make_step(model: Callable, cfg: EngineConfig, waypoints: torch.Tensor,
 
     def step(state: EngineState, spawn: SpawnFrame,
              seeds: Optional[Sequence[int]] = None):
-        present = (~torch.isnan(state.p[..., 0])).to(state.p.dtype)
+        with annotate("frame"):
+            present = (~torch.isnan(state.p[..., 0])).to(state.p.dtype)
 
-        if seeds is None:
-            out = model(state.ped_f, state.obs_f, state.self_f)
-        else:
-            rng = [torch.Generator(device=state.p.device).manual_seed(int(s))
-                   for s in seeds]
-            out = model(state.ped_f, state.obs_f, state.self_f, rng)
-        a_next = out.pred_acc
-        # one sum per frame (per channel for a batched state)
-        lead = state.p.ndim - 2
-        msg_l1 = (out.ped_msgs.abs().flatten(lead).sum(-1)
-                  if out.ped_msgs is not None
-                  else torch.zeros(state.p.shape[:lead],
-                                   device=state.p.device))
+            with annotate("frame.model"):
+                if seeds is None:
+                    out = model(state.ped_f, state.obs_f, state.self_f)
+                else:
+                    rng = [torch.Generator(device=state.p.device)
+                           .manual_seed(int(s)) for s in seeds]
+                    out = model(state.ped_f, state.obs_f, state.self_f, rng)
+            a_next = out.pred_acc
+            # one sum per frame (per channel for a batched state)
+            lead = state.p.ndim - 2
+            msg_l1 = (out.ped_msgs.abs().flatten(lead).sum(-1)
+                      if out.ped_msgs is not None
+                      else torch.zeros(state.p.shape[:lead],
+                                       device=state.p.device))
 
-        if cfg.track_collisions:
-            # contact counts carry no gradient (simulators.py:708)
-            p_sg = state.p.detach()
-            coll = collision_detection_single_frame(p_sg,
-                                                    cfg.collision_threshold)
-            hard = collision_detection_single_frame(
-                p_sg, cfg.collision_threshold / 2)
-        else:
-            coll = torch.zeros_like(present)
-            hard = torch.zeros_like(present)
+            if cfg.track_collisions:
+                # contact counts carry no gradient (simulators.py:708)
+                p_sg = state.p.detach()
+                with annotate("contacts.frame", device=True):
+                    coll = collision_detection_single_frame(
+                        p_sg, cfg.collision_threshold)
+                with annotate("contacts.frame", device=True):
+                    hard = collision_detection_single_frame(
+                        p_sg, cfg.collision_threshold / 2)
+            else:
+                coll = torch.zeros_like(present)
+                hard = torch.zeros_like(present)
 
-        if cfg.track_collision_labels and out.coll_pred is not None:
-            coll_pred = out.coll_pred
-            true_coll = collision_label(state.ped_f)
-        else:
-            k1 = state.ped_f.shape[-2]
-            coll_pred = torch.zeros(state.p.shape[:-1] + (k1,),
-                                    dtype=state.p.dtype,
-                                    device=state.p.device)
-            true_coll = torch.zeros_like(coll_pred)
+            if cfg.track_collision_labels and out.coll_pred is not None:
+                coll_pred = out.coll_pred
+                true_coll = collision_label(state.ped_f)
+            else:
+                k1 = state.ped_f.shape[-2]
+                coll_pred = torch.zeros(state.p.shape[:-1] + (k1,),
+                                        dtype=state.p.dtype,
+                                        device=state.p.device)
+                true_coll = torch.zeros_like(coll_pred)
 
-        if cfg.lagged:
-            v_next = state.v + state.a * dt
-            p_next = state.p + state.v * dt
-        else:
-            v_next = state.v + a_next * dt
-            p_next = state.p + v_next * dt
+            if cfg.lagged:
+                v_next = state.v + state.a * dt
+                p_next = state.p + state.v * dt
+            else:
+                v_next = state.v + a_next * dt
+                p_next = state.p + v_next * dt
 
-        # waypoint advance, retirement
-        dis = torch.linalg.vector_norm(state.p - state.dest, dim=-1)
-        dest_idx = state.dest_idx + (dis < 0.5).to(state.dest_idx.dtype)
-        arrived = dest_idx > dest_num - 1
-        if cfg.retire_on_arrival:
-            p_next = torch.where(arrived[..., None], torch.nan, p_next)
-        dest_idx = torch.where(arrived, dest_idx - 1, dest_idx)
-        dest_next = select_waypoint(waypoints, dest_idx)
+            # waypoint advance, retirement
+            dis = torch.linalg.vector_norm(state.p - state.dest, dim=-1)
+            dest_idx = state.dest_idx + (dis < 0.5).to(state.dest_idx.dtype)
+            arrived = dest_idx > dest_num - 1
+            if cfg.retire_on_arrival:
+                p_next = torch.where(arrived[..., None], torch.nan, p_next)
+            dest_idx = torch.where(arrived, dest_idx - 1, dest_idx)
+            dest_next = select_waypoint(waypoints, dest_idx)
 
-        hist_v = torch.cat([state.hist_v[..., 2:], v_next], dim=-1)
+            hist_v = torch.cat([state.hist_v[..., 2:], v_next], dim=-1)
 
-        # teleport-in of newly appearing agents
-        new = spawn.new[..., None] == 1
-        p_next = torch.where(new, spawn.p, p_next)
-        v_next = torch.where(new, spawn.v, v_next)
-        a_next = torch.where(new, spawn.a, a_next)
-        dest_next = torch.where(new, spawn.dest, dest_next)
-        dest_idx = torch.where(spawn.new == 1, spawn.dest_idx, dest_idx)
-        hist_v = torch.where(new, spawn.hist_v, hist_v)
+            # teleport-in of newly appearing agents
+            new = spawn.new[..., None] == 1
+            p_next = torch.where(new, spawn.p, p_next)
+            v_next = torch.where(new, spawn.v, v_next)
+            a_next = torch.where(new, spawn.a, a_next)
+            dest_next = torch.where(new, spawn.dest, dest_next)
+            dest_idx = torch.where(spawn.new == 1, spawn.dest_idx, dest_idx)
+            hist_v = torch.where(new, spawn.hist_v, hist_v)
 
-        ped_f, obs_f, self_f = features_for(
-            p_next, v_next, a_next, dest_next, hist_v,
-            state.ped_f.shape[-2], state.obs_f.shape[-2])
+            ped_f, obs_f, self_f = features_for(
+                p_next, v_next, a_next, dest_next, hist_v,
+                state.ped_f.shape[-2], state.obs_f.shape[-2])
 
-        new_state = EngineState(
-            p=p_next, v=v_next, a=a_next, dest=dest_next, dest_idx=dest_idx,
-            hist_v=hist_v, ped_f=ped_f, obs_f=obs_f, self_f=self_f)
-        outputs = StepOutputs(
-            p=state.p, v=state.v, a=state.a, mask=present,
-            collisions=coll, hard_collisions=hard,
-            coll_pred=coll_pred, true_coll=true_coll, msg_l1=msg_l1)
-        return new_state, outputs
+            new_state = EngineState(
+                p=p_next, v=v_next, a=a_next, dest=dest_next,
+                dest_idx=dest_idx, hist_v=hist_v, ped_f=ped_f, obs_f=obs_f,
+                self_f=self_f)
+            outputs = StepOutputs(
+                p=state.p, v=state.v, a=state.a, mask=present,
+                collisions=coll, hard_collisions=hard,
+                coll_pred=coll_pred, true_coll=true_coll, msg_l1=msg_l1)
+            return new_state, outputs
 
     return step
 
@@ -279,16 +288,18 @@ def rollout(model: Callable, cfg: EngineConfig, state: EngineState,
     ``cfg.shard_agents`` the pair pass runs sharded over ``mesh`` (every
     rank passes and gets the whole state), and no obstacle index is
     prebuilt: the sharded passes select obstacles densely."""
-    step = make_step(model, cfg, waypoints, dest_num, obstacles,
-                     desired_speed,
-                     obstacle_index=(None if cfg.shard_agents else
-                                     _obstacle_index(cfg, state, obstacles)),
-                     mesh=mesh, mesh_axis=mesh_axis)
-    outs: List[StepOutputs] = []
-    for t in range(spawns.new.shape[0]):
-        state, o = step(state, SpawnFrame(*(x[t] for x in spawns)))
-        outs.append(o)
-    return state, StepOutputs(*(torch.stack(x) for x in zip(*outs)))
+    with annotate("rollout"):
+        step = make_step(model, cfg, waypoints, dest_num, obstacles,
+                         desired_speed,
+                         obstacle_index=(None if cfg.shard_agents else
+                                         _obstacle_index(cfg, state,
+                                                         obstacles)),
+                         mesh=mesh, mesh_axis=mesh_axis)
+        outs: List[StepOutputs] = []
+        for t in range(spawns.new.shape[0]):
+            state, o = step(state, SpawnFrame(*(x[t] for x in spawns)))
+            outs.append(o)
+        return state, StepOutputs(*(torch.stack(x) for x in zip(*outs)))
 
 
 def batched_rollout(model: Callable, cfg: EngineConfig, state: EngineState,
@@ -311,22 +322,24 @@ def batched_rollout(model: Callable, cfg: EngineConfig, state: EngineState,
     checkpointed body, so a recomputed frame draws the same masks (the
     checkpoint restores only the global RNG, which dropout never reads).
     """
-    step = make_step(model, cfg, waypoints, dest_num, obstacles,
-                     desired_speed,
-                     obstacle_index=_obstacle_index(cfg, state, obstacles))
     remat = cfg.remat and torch.is_grad_enabled()
-    outs: List[StepOutputs] = []
-    for t in range(spawns.new.shape[1]):
-        spawn = SpawnFrame(*(x[:, t] for x in spawns))
-        seeds = None if step_seeds is None else step_seeds[:, t].tolist()
-        if remat:
-            state, o = checkpoint(step, state, spawn, seeds,
-                                  use_reentrant=False,
-                                  preserve_rng_state=False)
-        else:
-            state, o = step(state, spawn, seeds)
-        outs.append(o)
-    return state, StepOutputs(*(torch.stack(x, dim=1) for x in zip(*outs)))
+    with annotate("rollout"):
+        step = make_step(model, cfg, waypoints, dest_num, obstacles,
+                         desired_speed,
+                         obstacle_index=_obstacle_index(cfg, state, obstacles))
+        outs: List[StepOutputs] = []
+        for t in range(spawns.new.shape[1]):
+            spawn = SpawnFrame(*(x[:, t] for x in spawns))
+            seeds = None if step_seeds is None else step_seeds[:, t].tolist()
+            if remat:
+                state, o = checkpoint(step, state, spawn, seeds,
+                                      use_reentrant=False,
+                                      preserve_rng_state=False)
+            else:
+                state, o = step(state, spawn, seeds)
+            outs.append(o)
+        return state, StepOutputs(*(torch.stack(x, dim=1)
+                                    for x in zip(*outs)))
 
 
 def spawn_frames_from_scene(position, velocity, acceleration, destination,

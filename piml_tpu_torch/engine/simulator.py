@@ -29,6 +29,7 @@ from piml_tpu_torch.metrics import (collision_count, mae_with_time_mask,
 from piml_tpu_torch.physics import collision_detection_single_frame
 from piml_tpu_torch.physics.features import _GATE
 from piml_tpu_torch.train import losses
+from piml_tpu_torch.utils.profiling import annotate
 
 
 def engine_config(cfg: PIMLConfig, *, retire: bool, track_collisions: bool,
@@ -243,111 +244,115 @@ def training_rollout_loss(model: Callable, cfg: PIMLConfig,
     a ``lax.scan`` unroll factor and has no meaning for a Python loop: it
     is accepted and ignored.
     """
-    C, T = batch.num_channels, batch.num_frames
-    n_agents = batch.position.shape[2]
-    on_card = batch.position.is_cuda
-    remat = cfg.remat_features
-    if remat is None:
-        # the JAX package's auto policy: small batches run unrematerialized
-        # on the accelerator (launch-bound), everything else rematerializes
-        per_dev = C / max(cfg.n_devices, 1)
-        remat = not (per_dev * n_agents <= 16384 and on_card)
-    ecfg = dataclasses.replace(
-        engine_config(cfg, retire=False, track_collisions=True,
-                      track_labels=cfg.collision_pred_weight > 0),
-        remat=remat)
-    use_batched = cfg.channel_batched_bptt
-    if use_batched is None:
-        use_batched = (ecfg.neighbor.use_grid_topk
-                       and n_agents * n_agents >= _GATE and on_card)
-    if not use_batched:
+    with annotate("step.loss"):
+        C, T = batch.num_channels, batch.num_frames
+        n_agents = batch.position.shape[2]
+        on_card = batch.position.is_cuda
+        remat = cfg.remat_features
+        if remat is None:
+            # the JAX package's auto policy: small batches run unrematerialized
+            # on the accelerator (launch-bound), everything else rematerializes
+            per_dev = C / max(cfg.n_devices, 1)
+            remat = not (per_dev * n_agents <= 16384 and on_card)
         ecfg = dataclasses.replace(
-            ecfg, neighbor=ecfg.neighbor._replace(use_grid_topk=False))
+            engine_config(cfg, retire=False, track_collisions=True,
+                          track_labels=cfg.collision_pred_weight > 0),
+            remat=remat)
+        use_batched = cfg.channel_batched_bptt
+        if use_batched is None:
+            use_batched = (ecfg.neighbor.use_grid_topk
+                           and n_agents * n_agents >= _GATE and on_card)
+        if not use_batched:
+            ecfg = dataclasses.replace(
+                ecfg, neighbor=ecfg.neighbor._replace(use_grid_topk=False))
 
-    if generator is not None:
-        seeds = torch.randint(0, 2 ** 62, (C, T), generator=generator)
-    state0 = init_state(
-        batch.position[:, 0], batch.velocity[:, 0],
-        batch.acceleration[:, 0], batch.destination[:, 0],
-        batch.dest_idx[:, 0], batch.ped_features[:, 0],
-        batch.obs_features[:, 0], batch.self_features[:, 0])
-    _, outs = batched_rollout(
-        model, ecfg, state0, _channel_spawns(batch), batch.waypoints,
-        batch.dest_num, batch.obstacles, batch.desired_speed[:, None],
-        step_seeds=seeds)
+        if generator is not None:
+            seeds = torch.randint(0, 2 ** 62, (C, T), generator=generator)
+        state0 = init_state(
+            batch.position[:, 0], batch.velocity[:, 0],
+            batch.acceleration[:, 0], batch.destination[:, 0],
+            batch.dest_idx[:, 0], batch.ped_features[:, 0],
+            batch.obs_features[:, 0], batch.self_features[:, 0])
+        _, outs = batched_rollout(
+            model, ecfg, state0, _channel_spawns(batch), batch.waypoints,
+            batch.dest_num, batch.obstacles, batch.desired_speed[:, None],
+            step_seeds=seeds)
 
-    mask_pred = batch.mask_p_pred                                # C, T, N
-    # frames with no predictable agents record nothing (simulators.py:707)
-    frame_active = (mask_pred.sum(dim=-1, keepdim=True) > 0).to(
-        outs.p.dtype)                                            # C, T, 1
-    pred_rows = (mask_pred == 1)[..., None]
+        mask_pred = batch.mask_p_pred                                # C, T, N
+        # frames with no predictable agents record nothing (simulators.py:707)
+        frame_active = (mask_pred.sum(dim=-1, keepdim=True) > 0).to(
+            outs.p.dtype)                                            # C, T, 1
+        pred_rows = (mask_pred == 1)[..., None]
 
-    def masked(x):
-        x = torch.where(pred_rows, x, 0.0)
-        return torch.where(torch.isnan(x), 0.0, x)
+        def masked(x):
+            x = torch.where(pred_rows, x, 0.0)
+            return torch.where(torch.isnan(x), 0.0, x)
 
-    p_res = masked(outs.p)
-    labels_p = masked(batch.labels[..., :2])
-    mse = losses.multiple_rollout_mse_loss(p_res, labels_p, cfg.time_decay,
-                                           "sum")
-    loss = mse
+        p_res = masked(outs.p)
+        labels_p = masked(batch.labels[..., :2])
+        mse = losses.multiple_rollout_mse_loss(p_res, labels_p, cfg.time_decay,
+                                               "sum")
+        loss = mse
 
-    reg = (outs.msg_l1 * frame_active[..., 0]).sum() * cfg.reg_weight
-    if cfg.reg_weight > 0:
-        loss = loss + reg
+        reg = (outs.msg_l1 * frame_active[..., 0]).sum() * cfg.reg_weight
+        if cfg.reg_weight > 0:
+            loss = loss + reg
 
-    collisions = outs.collisions * frame_active
-    hard_collisions = outs.hard_collisions * frame_active
+        collisions = outs.collisions * frame_active
+        hard_collisions = outs.hard_collisions * frame_active
 
-    # label collisions from the ground-truth next-step positions
-    lab_pos = batch.labels[..., :2]
-    label_coll = collision_detection_single_frame(
-        lab_pos, cfg.collision_threshold) * frame_active
-    label_hard = collision_detection_single_frame(
-        lab_pos, cfg.collision_threshold / 2) * frame_active
-    if cfg.new_collision_loss_flag:
-        any_lc = label_coll.sum(dim=-2, keepdim=True) > 0        # C, 1, N
-        any_lh = label_hard.sum(dim=-2, keepdim=True) > 0
-        collisions = torch.where(any_lc, 0.0, collisions)
-        hard_collisions = torch.where(any_lh, 0.0, hard_collisions)
+        # label collisions from the ground-truth next-step positions
+        lab_pos = batch.labels[..., :2]
+        with annotate("contacts.labels", device=True):
+            label_coll = collision_detection_single_frame(
+                lab_pos, cfg.collision_threshold) * frame_active
+        with annotate("contacts.labels", device=True):
+            label_hard = collision_detection_single_frame(
+                lab_pos, cfg.collision_threshold / 2) * frame_active
+        if cfg.new_collision_loss_flag:
+            any_lc = label_coll.sum(dim=-2, keepdim=True) > 0        # C, 1, N
+            any_lh = label_hard.sum(dim=-2, keepdim=True) > 0
+            collisions = torch.where(any_lc, 0.0, collisions)
+            hard_collisions = torch.where(any_lh, 0.0, hard_collisions)
 
-    zero = torch.zeros((), device=outs.p.device)
-    coll_loss = hard_loss = zero
-    if cfg.collision_loss_weight > 0:
-        abnormal = (batch.abnormal_mask
-                    if cfg.collision_loss_version == "v2" else None)
-        coll_loss = losses.multiple_rollout_collision_loss(
-            p_res, labels_p, cfg.time_decay, collisions, "sum", abnormal
-        ) * cfg.collision_loss_weight
-        hard_loss = losses.multiple_rollout_collision_loss(
-            p_res, labels_p, cfg.time_decay, hard_collisions, "sum", abnormal
-        ) * cfg.collision_loss_weight * cfg.hard_collision_penalty
-        loss = loss + coll_loss + hard_loss
+        zero = torch.zeros((), device=outs.p.device)
+        coll_loss = hard_loss = zero
+        if cfg.collision_loss_weight > 0:
+            abnormal = (batch.abnormal_mask
+                        if cfg.collision_loss_version == "v2" else None)
+            coll_loss = losses.multiple_rollout_collision_loss(
+                p_res, labels_p, cfg.time_decay, collisions, "sum", abnormal
+            ) * cfg.collision_loss_weight
+            hard_loss = losses.multiple_rollout_collision_loss(
+                p_res, labels_p, cfg.time_decay, hard_collisions, "sum",
+                abnormal
+            ) * cfg.collision_loss_weight * cfg.hard_collision_penalty
+            loss = loss + coll_loss + hard_loss
 
-    if cfg.teacher_weight > 0:
-        a_mse = losses.multiple_rollout_mse_loss(
-            masked(outs.a), masked(batch.labels[..., 4:6]), cfg.time_decay,
-            "sum", reverse=True)
-        loss = loss + a_mse * cfg.teacher_weight
+        if cfg.teacher_weight > 0:
+            a_mse = losses.multiple_rollout_mse_loss(
+                masked(outs.a), masked(batch.labels[..., 4:6]), cfg.time_decay,
+                "sum", reverse=True)
+            loss = loss + a_mse * cfg.teacher_weight
 
-    cp_loss = cp_acc = zero
-    if cfg.collision_pred_weight > 0:
-        # only live slots reach the BCE: the reference's dynamic tensors
-        # hold live agents only (simulators.py:781-832)
-        live = outs.mask * frame_active                          # C, T, N
-        pred_c = outs.coll_pred * live[..., None]
-        true_c = outs.true_coll * live[..., None]
-        cp_loss = losses.binary_cross_entropy(
-            pred_c, true_c, "sum") * cfg.collision_pred_weight
-        n_live = live.sum() if total is None else total(live.sum())
-        n_live = torch.clamp_min(n_live, 1.0) * outs.coll_pred.shape[-1]
-        cp_acc = ((torch.round(pred_c) == true_c).to(pred_c.dtype)
-                  * live[..., None]).sum() / n_live
-        loss = loss + cp_loss
+        cp_loss = cp_acc = zero
+        if cfg.collision_pred_weight > 0:
+            # only live slots reach the BCE: the reference's dynamic tensors
+            # hold live agents only (simulators.py:781-832)
+            live = outs.mask * frame_active                          # C, T, N
+            pred_c = outs.coll_pred * live[..., None]
+            true_c = outs.true_coll * live[..., None]
+            cp_loss = losses.binary_cross_entropy(
+                pred_c, true_c, "sum") * cfg.collision_pred_weight
+            n_live = live.sum() if total is None else total(live.sum())
+            n_live = torch.clamp_min(n_live, 1.0) * outs.coll_pred.shape[-1]
+            cp_acc = ((torch.round(pred_c) == true_c).to(pred_c.dtype)
+                      * live[..., None]).sum() / n_live
+            loss = loss + cp_loss
 
-    return TrainingRolloutLoss(
-        loss=loss, mse_loss=mse, collision_loss=coll_loss,
-        hard_collision_loss=hard_loss, collision_pred_loss=cp_loss,
-        collision_pred_acc=cp_acc, reg_loss=reg,
-        collision_count=collisions.sum(),
-        hard_collision_count=hard_collisions.sum())
+        return TrainingRolloutLoss(
+            loss=loss, mse_loss=mse, collision_loss=coll_loss,
+            hard_collision_loss=hard_loss, collision_pred_loss=cp_loss,
+            collision_pred_acc=cp_acc, reg_loss=reg,
+            collision_count=collisions.sum(),
+            hard_collision_count=hard_collisions.sum())

@@ -54,6 +54,7 @@ from piml_tpu_torch.ops.grid_pairs import (auto_grid_dim, build_cell_index,
                                            cell_coords)
 from piml_tpu_torch.ops.pairwise import (MAX_K, cos_threshold, pack_rows,
                                          pair_d2)
+from piml_tpu_torch.utils.profiling import annotate
 
 KERNEL = _build.KernelCount()
 LANE = 128      # window starts are in units of LANE columns
@@ -516,7 +517,9 @@ def topk_neighbors_banded_or_dense(
     bd, bi, exact = topk_neighbors_banded(
         position, heading, k, angle_threshold, objects=objects,
         same_objects=same_objects, dist_threshold=dist_threshold, **kw)
-    if bool(exact):
+    with annotate("sync.k2_exact"):
+        exact = bool(exact)
+    if exact:
         return bd, bi
     KERNEL.fallbacks += 1
     return dense_fn()
@@ -536,7 +539,9 @@ def topk_neighbors_banded_batched_or_dense(
     per call; fallbacks are counted in ``KERNEL.fallbacks``."""
     bd, bi, exact = topk_neighbors_banded_batched(
         position, heading, k, angle_threshold, **kw)
-    if bool(exact.all()):
+    with annotate("sync.k2_exact"):
+        exact = bool(exact.all())
+    if exact:
         return bd, bi
     KERNEL.fallbacks += 1
     return dense_fn()

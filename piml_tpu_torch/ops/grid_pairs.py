@@ -12,6 +12,8 @@ from typing import Tuple
 
 import torch
 
+from piml_tpu_torch.utils.profiling import annotate
+
 
 def auto_grid_dim(m: int, k: int, fine: bool = False) -> int:
     """Static grid dimension targeting ~k objects per cell (1.5× finer when
@@ -26,7 +28,8 @@ def _scalar(x: float, like: torch.Tensor) -> torch.Tensor:
     """A 0-dim f32 tensor on ``like``'s device: dividing by it is a true
     division (PyTorch turns division by a host scalar into a multiply by
     its reciprocal, which may round differently)."""
-    return torch.tensor(x, dtype=torch.float32, device=like.device)
+    with annotate("sync.cell_divisor"):  # a blocking host-to-device copy
+        return torch.tensor(x, dtype=torch.float32, device=like.device)
 
 
 def cell_coords(points: torch.Tensor, lo: torch.Tensor, cs: torch.Tensor,
@@ -51,8 +54,9 @@ def build_cell_index(objects: torch.Tensor, grid_dim: int
     g = grid_dim
     valid = torch.isfinite(objects).all(dim=-1)
     masked = torch.where(valid[:, None], objects, math.nan)
-    q = torch.tensor([0.005, 0.995], dtype=objects.dtype,
-                     device=objects.device)
+    with annotate("sync.cell_quantiles"):  # a blocking host-to-device copy
+        q = torch.tensor([0.005, 0.995], dtype=objects.dtype,
+                         device=objects.device)
     qs = torch.nanquantile(masked, q, dim=0, interpolation="linear")
     lo, hi = qs[0], qs[1]
     empty = ~valid.any()
@@ -64,7 +68,8 @@ def build_cell_index(objects: torch.Tensor, grid_dim: int
     cc = torch.where(valid[:, None], cc, 0.0).long()
     cid = torch.where(valid, cc[:, 0] * g + cc[:, 1], g * g)
     order = torch.argsort(cid, stable=True)
-    counts = torch.bincount(cid, minlength=g * g + 1)
+    with annotate("sync.cell_bincount"):  # reads cid's range on the host
+        counts = torch.bincount(cid, minlength=g * g + 1)
     offsets = torch.cat([torch.zeros(1, dtype=torch.long,
                                      device=objects.device),
                          torch.cumsum(counts, 0)])

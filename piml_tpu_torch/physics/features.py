@@ -37,6 +37,7 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 
 from piml_tpu_torch.ops import banded, pairwise
+from piml_tpu_torch.utils.profiling import annotate
 
 INF = math.inf
 _GATE = 2 ** 21
@@ -251,7 +252,9 @@ def _banded_wide_fallback(position: torch.Tensor, heading: torch.Tensor,
         position, heading, k, sight_angle, dist_threshold=dist_threshold,
         grid_dim=g2, window=w2)
     banded.KERNEL.wide_calls += 1
-    if not bool(exact):
+    with annotate("sync.k2_exact"):
+        exact = bool(exact)
+    if not exact:
         banded.KERNEL.wide_relaxed += 1
     return bd, bi
 

@@ -38,6 +38,7 @@ from piml_tpu_torch.physics import forces
 from piml_tpu_torch.train import checkpoint as ckpt
 from piml_tpu_torch.train import losses
 from piml_tpu_torch.utils.logging import MetricLogger  # noqa: F401
+from piml_tpu_torch.utils.profiling import StepSpan
 
 StateDict = Dict[str, torch.Tensor]
 # rows per validation chunk of the pretrain (the JAX package's lax.map)
@@ -66,24 +67,30 @@ def make_optimizer(cfg: PIMLConfig, params, finetune: bool = False
     ``lr·finetune_lr_decay``, both with decay ``wd``.
 
     ``params``: the model, or its parameters (which cannot be split into
-    groups)."""
+    groups).  Each ``step()`` is an ``optimizer`` device span
+    (``utils/profiling.py``), opened and closed by the step hooks."""
     lr, wd = cfg.learning_rate, cfg.weight_decay
     if finetune and cfg.model in GROUPED_FINETUNES:
         if not isinstance(params, torch.nn.Module):
             raise ValueError(f"the {cfg.model!r} finetune optimizer splits "
                              "parameters by name: pass the model")
         named = list(params.named_parameters())
-        return torch.optim.Adam(
+        opt = torch.optim.Adam(
             [{"params": [p for n, p in named if "corrector" in n],
               "lr": lr * cfg.ft_lr_decay2},
              {"params": [p for n, p in named if "corrector" not in n],
               "lr": lr * cfg.finetune_lr_decay}],
             lr=lr, weight_decay=wd)
-    if isinstance(params, torch.nn.Module):
-        params = params.parameters()
-    if finetune:
-        lr, wd = lr * cfg.finetune_lr_decay, wd * cfg.finetune_wd_aug
-    return torch.optim.Adam(params, lr=lr, weight_decay=wd)
+    else:
+        if isinstance(params, torch.nn.Module):
+            params = params.parameters()
+        if finetune:
+            lr, wd = lr * cfg.finetune_lr_decay, wd * cfg.finetune_wd_aug
+        opt = torch.optim.Adam(params, lr=lr, weight_decay=wd)
+    span = StepSpan("optimizer", device=True)
+    opt.register_step_pre_hook(span.pre)
+    opt.register_step_post_hook(span.post)
+    return opt
 
 
 def make_batches(n: int, batch_size: int, rng: np.random.RandomState,

@@ -190,33 +190,6 @@ def test_rollout_mae_powerlaw_matches_jax_bitwise(rng, horizon):
     assert np.isfinite(got[0]).all() == (horizon == "long")
 
 
-def test_throughput_reports_like_jax():
-    """Both counters report every ``report_every`` steps after the first,
-    to the logger and as the return value."""
-    from piml_tpu.utils.profiling import Throughput as JaxThroughput
-    from piml_tpu_torch.utils.profiling import Throughput
-
-    class Logger:
-        def __init__(self):
-            self.records = []
-
-        def log(self, **kw):
-            self.records.append(kw)
-
-    outs = []
-    for cls in (Throughput, JaxThroughput):
-        log = Logger()
-        meter = cls(report_every=3, logger=log)
-        rates = [meter.step(items=5) for _ in range(10)]
-        outs.append(([r is not None for r in rates], log.records))
-        assert all(r > 0 for r in rates if r is not None)
-        assert all(rec["items_per_sec"] == pytest.approx(
-            5 * rec["steps_per_sec"]) for rec in log.records)
-    assert outs[0][0] == outs[1][0] == [False] * 3 + [True] + [False] * 2 \
-        + [True] + [False] * 2 + [True]
-    assert len(outs[0][1]) == len(outs[1][1]) == 3
-
-
 def test_trace_to_writes_a_chrome_trace_with_the_annotations(tmp_path):
     from piml_tpu_torch.utils.profiling import annotate, trace_to
 
