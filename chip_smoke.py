@@ -19,6 +19,15 @@ Phases, one line each; any failure raises and exits non-zero:
    slices), duplicate positions, absent rows and columns, N not a multiple
    of 32 or 128, a table narrower than one slice, k = 1 and 16, C = 3 with
    per-channel and shared tables, an overflowed K2 window;
+3c. the contact-count kernel (``contact_counts_check``): the form of
+   ``torch.linalg.vector_norm`` over (dx, dy) on the card, on millions of
+   pairs, against the kernel's ``sqrtf(dx·dx + dy·dy)``; the counts for
+   two thresholds in one launch, bitwise equal to the plain version at
+   (frames, N) = (2, 12685), (20, 12685), (32, 337) and (320, 337), with
+   NaN and infinite rows, coincident agents, N = 0, 1 and N not a
+   multiple of the 64-row tile, pairs planted one ulp either side of 0.5
+   and 0.25 m, one threshold, a threshold of 0; the dense and GC shapes'
+   times beside their bounds;
 4. the dense-stress rollout (N = 12,685, M = 4,096, 50 frames after a
    3-frame warm-up, default ``NeighborConfig``, trained ``pinnsf_bm``
    weights): ms/frame, K2 launches and fallbacks, every live position
@@ -45,7 +54,8 @@ Phases, one line each; any failure raises and exits non-zero:
    64 obstacles, ``pinnsf_bm`` finetune model with ``pred_acc`` clamped
    to ±5, the bench's loss weights, dropout 0): three Adam steps whose
    feature passes launch the channel-batched K2 on every frame; s/step,
-   peak memory, launches, fallbacks, finite losses; then one step through
+   peak memory, launches (K2's and the contact kernel's: one a frame and
+   one for the labels), fallbacks, finite losses; then one step through
    the kernels and through the plain versions (loss to rtol 1e-6,
    gradients to relative L2 1e-5: the index-gather backward accumulates
    with atomics);
@@ -318,14 +328,20 @@ def queued_ms(fn, reps):
 def plain_route():
     """Route the kernel wrappers to their plain versions on the card (for
     the comparisons only: the wrappers themselves never fall back)."""
-    from piml_tpu_torch.ops import banded, pairwise
+    from piml_tpu_torch.ops import banded, contacts, pairwise
 
     def banded_plain(*args):   # the plain version takes no cell offsets
         return banded.banded_topk_plain(*args[:-1])
 
+    def contacts_plain(position, thresholds):
+        return tuple(contacts.contact_counts_plain(position, thr)
+                     for thr in thresholds)
+
     with mock.patch.object(pairwise, "pairwise_topk_cuda",
                            pairwise.pairwise_topk_plain), \
-            mock.patch.object(banded, "banded_topk_cuda", banded_plain):
+            mock.patch.object(banded, "banded_topk_cuda", banded_plain), \
+            mock.patch.object(contacts, "contact_counts_cuda",
+                              contacts_plain):
         yield
 
 
@@ -533,6 +549,129 @@ def kernel_edge_cases(dev):
                              "reported exact")
     say("kernel_edge_cases", bitwise_equal=True, cases=checks)
     return checks
+
+
+def norm_forms(dev, pairs):
+    """How ``torch.linalg.vector_norm`` computes ``|p_j − p_i|`` over a
+    trailing dim of 2 on the card, as the plain contact counts call it:
+    mismatches of each candidate form on ``pairs`` random pairs (at
+    coordinates up to 2 m, where distances near the thresholds are
+    common).  ``sqrt(dx·dx + dy·dy)`` rounds each product; the multiply-add
+    forms round ``dx·dx`` (or ``dy·dy``) and then the exact sum, emulated
+    in f64 (one more rounding, off in a vanishing share of pairs)."""
+    import torch
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 11)
+    side = int(math.isqrt(pairs))
+    p = torch.rand((side, 2), generator=g, device=dev) * 2.0
+    rel = p[None, :, :] - p[:, None, :]
+    norm = torch.linalg.vector_norm(rel, dim=-1)
+    dx, dy = rel[..., 0], rel[..., 1]
+    forms = {
+        "sqrt(dx*dx+dy*dy)": torch.sqrt(dx * dx + dy * dy),
+        "sqrt(fma(dy,dy,dx*dx))": torch.sqrt(
+            (dy.double() * dy.double() + (dx * dx).double()).float()),
+        "sqrt(fma(dx,dx,dy*dy))": torch.sqrt(
+            (dx.double() * dx.double() + (dy * dy).double()).float()),
+    }
+    return side * side, {name: int((f != norm).sum())
+                         for name, f in forms.items()}
+
+
+def contact_counts_check(dev):
+    """Phase 3c: the contact-count kernel bit for bit against its plain
+    version (one call per threshold) on the main path's shapes and on edge
+    cases, after checking that the kernel's form of the distance is the
+    one ``vector_norm`` takes on the card; ``queued_ms`` of the dense and
+    GC shapes beside the bound of their pair tests."""
+    import numpy as np
+    import torch
+
+    from piml_tpu_torch.ops import contacts
+
+    pairs, forms = norm_forms(dev, 1 << 24)
+    say("contact_norm_form", pairs=pairs, mismatches=forms)
+    if forms["sqrt(dx*dx+dy*dy)"]:
+        raise AssertionError(f"vector_norm is not sqrt(dx*dx+dy*dy) on the "
+                             f"card: mismatches {forms}")
+
+    rs = np.random.RandomState(SEED + 7)
+    checks = []
+
+    def check(name, pos, thresholds=(0.5, 0.25)):
+        pos = torch.as_tensor(np.asarray(pos, np.float32), device=dev)
+        got = contacts.contact_counts_cuda(pos, thresholds)
+        ref = [contacts.contact_counts_plain(pos, thr) for thr in thresholds]
+        torch.cuda.synchronize()
+        for g_, r_, thr in zip(got, ref, thresholds):
+            assert_equal(g_, r_, f"contacts {name} thr={thr}")
+        checks.append(dict(case=name, frames=pos.shape[0], n=pos.shape[1],
+                           thresholds=list(thresholds),
+                           contacts=[float(c.sum()) for c in got]))
+        return pos
+
+    def uniform(frames, n, extent):
+        return (rs.rand(frames, n, 2) * extent).astype(np.float32)
+
+    # the main path's shapes: the dense frames and labels over 200 m, the
+    # GC scene's channels and labels on a concourse-sized patch
+    dense2 = check("dense frame", uniform(2, N_AGENTS, 200.0))
+    dense20 = check("dense labels", uniform(20, N_AGENTS, 200.0))
+    gc32 = check("GC frame", uniform(32, 337, 20.0))
+    gc320 = check("GC labels", uniform(320, 337, 20.0))
+    # edge cases
+    pos = uniform(3, 1000, 8.0)
+    pos[:, rs.rand(1000) < 0.2] = np.nan
+    pos[0, 5, 1] = np.nan                      # one coordinate absent
+    pos[1, 7] = np.inf
+    pos[1, 8] = (np.inf, 2.0)
+    pos[2, 9] = -np.inf
+    pos[:, 20:40] = pos[:, 40:60]              # coincident distinct agents
+    pos[:, 60:63] = pos[:, 63:64]
+    check("NaN, inf and coincident rows", pos)
+    for n in (0, 1, 2, 63, 65, 97, 337):
+        check(f"N={n}", uniform(3, n, 2.0))
+    # pairs one ulp either side of each threshold, axis-aligned and
+    # diagonal (0.3, 0.4 → 0.5; 0.15, 0.2 → 0.25): one pair a frame, agent
+    # 0 at the origin so that every difference is exact, beside a crowd
+    # 10 m away
+    planted = []
+    for thr in (np.float32(0.5), np.float32(0.25)):
+        for u in (-2, -1, 0, 1, 2):
+            d = thr
+            for _ in range(abs(u)):
+                d = np.nextafter(d, np.float32(u))
+            planted += [(d, np.float32(0.0)), (np.float32(0.0), d)]
+            for fx, fy in ((0.6, 0.8), (0.8, 0.6)):
+                y = np.float32(fy * thr)
+                for _ in range(abs(u)):
+                    y = np.nextafter(y, np.float32(u))
+                planted.append((np.float32(fx * thr), y))
+    frames = uniform(len(planted), 66, 30.0) + np.float32(10.0)
+    frames[:, 0] = 0.0
+    frames[:, 1] = planted
+    near = check("planted pairs at 0-2 ulp", frames)
+    check("one threshold", uniform(2, 777, 6.0), (0.5,))
+    check("thresholds 0.3 and 0", uniform(2, 500, 3.0), (0.3, 0.0))
+    say("contact_counts_cases", bitwise_equal=True, cases=checks,
+        planted_pairs=len(planted), planted_hits=[
+            float(c[:, 0].sum())
+            for c in contacts.contact_counts_cuda(near, (0.5, 0.25))])
+
+    passes = {}
+    for name, pos in (("dense_frame", dense2), ("dense_labels", dense20),
+                      ("gc_frame", gc32), ("gc_labels", gc320)):
+        ms = queued_ms(lambda: contacts.contact_counts_cuda(
+            pos, (0.5, 0.25)), 20)
+        plain_ms = queued_ms(lambda: [contacts.contact_counts_plain(pos, t)
+                                      for t in (0.5, 0.25)], 3)
+        frames, n = pos.shape[0], pos.shape[1]
+        # positions read once, two f32 counts written a row
+        bound = kernel_bound(16 * frames * n, frames * n * n)
+        passes[name] = pass_record(ms, plain_ms, bound)
+        say("contact_counts", which=name, frames=frames, n=n,
+            slices=contacts.column_slices(n)[0], **passes[name])
+    return passes
 
 
 def k2_pass_kwargs(sc, ncfg):
@@ -2502,7 +2641,7 @@ def main():
     import piml_tpu_torch  # noqa: F401  (sets allow_tf32 = False)
     from piml_tpu_torch import _build
     from piml_tpu_torch.engine import training_rollout_loss
-    from piml_tpu_torch.ops import banded, pairwise
+    from piml_tpu_torch.ops import banded, contacts, pairwise
     from piml_tpu_torch.physics import NeighborConfig, heading_direction, \
         relative_features
 
@@ -2591,6 +2730,9 @@ def main():
 
     # ---- 3b. both kernels on edge cases ------------------------------------
     kernel_edge_cases(dev)
+
+    # ---- 3c. the contact-count kernel --------------------------------------
+    contact_passes = contact_counts_check(dev)
 
     # ---- 4./5. the main path: dense-stress rollouts -------------------------
     cfg, model = trained_model(dev)
@@ -2742,6 +2884,7 @@ def main():
     pairwise.KERNEL.launches = 0
     banded.KERNEL.launches = 0
     banded.KERNEL.fallbacks = 0
+    contacts.KERNEL.launches = 0
     torch.cuda.reset_peak_memory_stats(dev)
     step_s, step_losses = [], []
     for _ in range(TRAIN_STEPS):
@@ -2754,7 +2897,8 @@ def main():
         step_losses.append(out.loss.item())
         step_s.append(time.perf_counter() - t0)
     ft_launches = dict(k1=pairwise.KERNEL.launches, k2=banded.KERNEL.launches,
-                       k2_fallbacks=banded.KERNEL.fallbacks)
+                       k2_fallbacks=banded.KERNEL.fallbacks,
+                       contacts=contacts.KERNEL.launches)
     peak = torch.cuda.max_memory_allocated(dev)
     say("dense_finetune_step", channels=TRAIN_CHANNELS, frames=TRAIN_FRAMES,
         agents=N_AGENTS, obstacles=TRAIN_OBSTACLES, s_per_step=step_s,
@@ -2764,6 +2908,12 @@ def main():
     if ft_launches["k2"] < TRAIN_STEPS * TRAIN_FRAMES:
         raise AssertionError("dense finetune: K2 was not launched on every "
                              f"frame ({ft_launches['k2']} launches)")
+    # every frame counts its contacts, and the loss its labels', in one
+    # launch each (the checkpoint's recompute launches again)
+    if ft_launches["contacts"] < TRAIN_STEPS * (TRAIN_FRAMES + 1):
+        raise AssertionError("dense finetune: the contact kernel was not "
+                             "launched on every frame "
+                             f"({ft_launches['contacts']} launches)")
     terms_k, grads_k = loss_and_grads(model9, cfg9, batch9, clamped)
     with plain_route():
         terms_p, grads_p = loss_and_grads(model9, cfg9, batch9, clamped)
@@ -2917,6 +3067,13 @@ def main():
              launches_scale_ceiling=scale["k2"],
              launches_wide_fallback=scale["wide_calls"],
              half_grid_pass=scale["half_grid"], **record["k2"]),
+        dict(name="contact_counts", route="cuda",
+             source="piml_tpu_torch/csrc/contact_counts.cu",
+             replaces="none: XLA's pair tensor in "
+                      "piml_tpu/physics/features.py "
+                      "collision_detection_single_frame",
+             launches_finetune=ft_launches["contacts"], library_ms=None,
+             passes=contact_passes),
         dict(name="banded_topk (K2), agent-sharded caller", route="cuda",
              source="piml_tpu_torch/csrc/banded_topk.cu",
              replaces="piml_tpu/parallel/agent_shard.py:286",

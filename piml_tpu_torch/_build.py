@@ -49,6 +49,9 @@ _SIGNATURES = {
     # self_pairs, k, out_d, out_i, stream
     "piml_banded_topk": (_P, _P, _I, _P, _I, _I, _P, _I, _I, _P, _I, _I, _I,
                          _F, _I, _I, _P, _P, _P),
+    # pos, frames, n, slices, cols_per_slice, thresholds, thr0, thr1,
+    # out0, out1, stream
+    "piml_contact_counts": (_P, _I, _I, _I, _I, _I, _F, _F, _P, _P, _P),
 }
 
 

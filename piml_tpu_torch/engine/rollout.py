@@ -198,11 +198,9 @@ def make_step(model: Callable, cfg: EngineConfig, waypoints: torch.Tensor,
                 # contact counts carry no gradient (simulators.py:708)
                 p_sg = state.p.detach()
                 with annotate("contacts.frame", device=True):
-                    coll = collision_detection_single_frame(
-                        p_sg, cfg.collision_threshold)
-                with annotate("contacts.frame", device=True):
-                    hard = collision_detection_single_frame(
-                        p_sg, cfg.collision_threshold / 2)
+                    coll, hard = collision_detection_single_frame(
+                        p_sg, (cfg.collision_threshold,
+                               cfg.collision_threshold / 2))
             else:
                 coll = torch.zeros_like(present)
                 hard = torch.zeros_like(present)

@@ -304,11 +304,11 @@ def training_rollout_loss(model: Callable, cfg: PIMLConfig,
         # label collisions from the ground-truth next-step positions
         lab_pos = batch.labels[..., :2]
         with annotate("contacts.labels", device=True):
-            label_coll = collision_detection_single_frame(
-                lab_pos, cfg.collision_threshold) * frame_active
-        with annotate("contacts.labels", device=True):
-            label_hard = collision_detection_single_frame(
-                lab_pos, cfg.collision_threshold / 2) * frame_active
+            label_coll, label_hard = collision_detection_single_frame(
+                lab_pos, (cfg.collision_threshold,
+                          cfg.collision_threshold / 2))
+            label_coll = label_coll * frame_active
+            label_hard = label_hard * frame_active
         if cfg.new_collision_loss_flag:
             any_lc = label_coll.sum(dim=-2, keepdim=True) > 0        # C, 1, N
             any_lh = label_hard.sum(dim=-2, keepdim=True) > 0

@@ -32,11 +32,11 @@ runs without autograd; gradients flow through the gathered states.
 from __future__ import annotations
 
 import math
-from typing import NamedTuple, Optional, Tuple
+from typing import NamedTuple, Optional, Tuple, Union
 
 import torch
 
-from piml_tpu_torch.ops import banded, pairwise
+from piml_tpu_torch.ops import banded, contacts, pairwise
 from piml_tpu_torch.utils.profiling import annotate
 
 INF = math.inf
@@ -48,7 +48,6 @@ _GATE = 2 ** 21
 # follows the JAX package's: the agent pass falls back to the half-grid
 # banded pass, not to the O(N^2) dense scan.
 DENSE_COLUMN_CEILING = 257_536
-_PAIR_CHUNK = 2 ** 25   # pair elements per chunk of the contact counts
 
 
 class NeighborConfig(NamedTuple):
@@ -444,31 +443,16 @@ def collision_detection(position: torch.Tensor, threshold: float,
     return coll * friends
 
 
-@torch.no_grad()
-def collision_detection_single_frame(position: torch.Tensor,
-                                     threshold: float) -> torch.Tensor:
+def collision_detection_single_frame(
+        position: torch.Tensor, threshold: Union[float, Tuple[float, ...]]):
     """Per-frame contact counts without the friends filter:
-    ``(..., N, 2) → (..., N)``.
-
-    The counts come from comparisons and carry no gradient.  They are
-    taken ``chunk`` query rows at a time, so at most ``_PAIR_CHUNK`` pairs
-    exist at once: the BPTT loss counts label contacts over whole
-    ``(C, T, N)`` windows, whose pair tensor at dense N would not fit the
-    card."""
-    n = position.shape[-2]
-    lead = math.prod(position.shape[:-2])
-    chunk = max(1, _PAIR_CHUNK // max(lead * n, 1))
-    cols = position[..., None, :, :]
-    counts = []
-    for s in range(0, max(n, 1), chunk):
-        rows = position[..., s:s + chunk, None, :]
-        dist = _norm(cols - rows)                          # ..., r, N
-        eye = (torch.arange(s, s + dist.shape[-2], device=position.device
-                            )[:, None]
-               == torch.arange(n, device=position.device)[None, :])
-        hit = (dist < threshold).to(position.dtype) - eye.to(position.dtype)
-        counts.append(torch.where(torch.isnan(dist), 0.0, hit).sum(dim=-1))
-    return torch.cat(counts, dim=-1)
+    ``(..., N, 2) → (..., N)``; ``threshold`` a float, or a tuple of floats
+    for a tuple of counts, one per threshold, from one pass over the pairs
+    (``ops/contacts.py``: the plain version on the CPU, the kernel on the
+    card).  The counts come from comparisons and carry no gradient."""
+    if isinstance(threshold, tuple):
+        return contacts.contact_counts(position, threshold)
+    return contacts.contact_counts(position, (threshold,))[0]
 
 
 # ----------------------------------------------------------------------------

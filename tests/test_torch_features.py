@@ -13,6 +13,7 @@ import torch
 
 from _torch_compare import assert_features_match
 from piml_tpu.physics import features as jf
+from piml_tpu_torch.ops import contacts
 from piml_tpu_torch.physics import features as tf
 
 
@@ -169,10 +170,29 @@ def test_contact_counts_in_row_chunks_match_jax(rng, monkeypatch):
     rows at a time, equal the JAX package's all-pairs counts."""
     pos = (rng.rand(2, 3, 40, 2) * 4).astype(np.float32)
     pos[rng.rand(2, 3, 40) < 0.2] = np.nan
-    monkeypatch.setattr(tf, "_PAIR_CHUNK", 2 * 3 * 40 * 7)   # 7 rows
+    monkeypatch.setattr(contacts, "_PAIR_CHUNK", 2 * 3 * 40 * 7)   # 7 rows
     for thr in (0.5, 0.25):
         np.testing.assert_array_equal(
             tf.collision_detection_single_frame(_t(pos), thr).numpy(),
+            np.asarray(jf.collision_detection_single_frame(jnp.asarray(pos),
+                                                           thr)))
+
+
+@pytest.mark.parametrize("shape", [(30, 2), (2, 3, 40, 2), (4, 1, 2)])
+def test_two_threshold_contact_counts_match_two_jax_calls(rng, shape):
+    """One call with both thresholds returns what two single-threshold
+    calls of the JAX package return, NaN rows, coincident agents and N = 1
+    included, and on the CPU it never launches the kernel."""
+    pos = (rng.rand(*shape) * 3).astype(np.float32)
+    pos[rng.rand(*shape[:-1]) < 0.2] = np.nan
+    if shape[-2] > 2:
+        pos[..., 1, :] = pos[..., 2, :]       # coincident distinct agents
+    launches = contacts.KERNEL.launches
+    soft, hard = tf.collision_detection_single_frame(_t(pos), (0.5, 0.25))
+    assert contacts.KERNEL.launches == launches
+    for got, thr in ((soft, 0.5), (hard, 0.25)):
+        np.testing.assert_array_equal(
+            got.numpy(),
             np.asarray(jf.collision_detection_single_frame(jnp.asarray(pos),
                                                            thr)))
 

@@ -25,7 +25,8 @@ from piml_tpu.ops.banded import topk_neighbors_banded as jax_banded
 from piml_tpu.ops.grid_pairs import build_cell_index as jax_cell_index
 from piml_tpu.ops.pairwise import topk_neighbors_pallas as jax_dense
 from piml_tpu.physics.features import heading_direction as jax_heading
-from piml_tpu_torch.ops import banded, grid_pairs, pairwise
+from piml_tpu_torch import _build
+from piml_tpu_torch.ops import banded, contacts, grid_pairs, pairwise
 from piml_tpu_torch.scene import codec
 
 
@@ -126,6 +127,50 @@ def test_k1_wrapper_refuses_bad_inputs_before_any_launch():
     with pytest.raises(ValueError, match="CUDA"):   # well-formed, on the CPU
         pairwise.pairwise_topk_cuda(rows, torch.zeros((3, 5)), 3, 0.1, True)
 
+
+
+def test_contacts_wrapper_refuses_bad_inputs_before_any_launch(monkeypatch):
+    """The contact-count kernel's wrapper validates dtype, shape, layout
+    and the number of thresholds, and raises before touching the library
+    or counting a launch; a well-formed CPU tensor is refused too (the
+    CUDA route never falls back)."""
+    def no_library():
+        raise AssertionError("the library was reached")
+
+    monkeypatch.setattr(_build.LIBRARY, "get", no_library)
+    pos = torch.zeros((2, 5, 2))
+    launches = contacts.KERNEL.launches
+    with pytest.raises(TypeError):
+        contacts.contact_counts_cuda(pos.double(), (0.5,))
+    with pytest.raises(ValueError):                 # no frame axis
+        contacts.contact_counts_cuda(pos[0], (0.5,))
+    with pytest.raises(ValueError):                 # not (x, y)
+        contacts.contact_counts_cuda(torch.zeros((2, 5, 3)), (0.5,))
+    with pytest.raises(ValueError):                 # not contiguous
+        contacts.contact_counts_cuda(
+            torch.zeros((2, 2, 5)).transpose(1, 2), (0.5,))
+    with pytest.raises(ValueError):
+        contacts.contact_counts_cuda(pos, ())
+    with pytest.raises(ValueError):
+        contacts.contact_counts_cuda(pos, (0.5, 0.25, 0.1))
+    with pytest.raises(ValueError, match="CUDA"):   # well-formed, on the CPU
+        contacts.contact_counts_cuda(pos, (0.5, 0.25))
+    assert contacts.KERNEL.launches == launches
+
+
+@pytest.mark.parametrize("n", [0, 1, 31, 64, 337, 12685, 100003])
+def test_contact_column_slices_cover_each_column_once(n):
+    """The contact kernel's slice split: 1 to ``MAX_SLICES`` warps, none
+    under ``MIN_SLICE_COLS`` columns unless there is one, and the slices
+    ``[s·per, min(n, (s + 1)·per))`` cover each column exactly once."""
+    slices, per = contacts.column_slices(n)
+    assert 1 <= slices <= contacts.MAX_SLICES
+    assert per >= 1 and slices * per >= n
+    assert slices == 1 or per >= contacts.MIN_SLICE_COLS
+    hits = np.zeros(n, np.int64)
+    for s in range(slices):
+        hits[s * per:min(n, (s + 1) * per)] += 1
+    np.testing.assert_array_equal(hits, 1)
 
 # ---------------------------------------------------------------------------
 # K2: banded selection

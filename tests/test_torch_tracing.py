@@ -239,8 +239,8 @@ def test_rollout_records_each_frame_its_features_and_model_once():
 
 @pytest.mark.parametrize("remat", [False, True])
 def test_batched_rollout_keeps_the_recomputed_frames_spans(remat):
-    """Each frame counts its contacts twice (soft and hard); the
-    checkpoint's recompute under ``backward()`` counts them again.  The
+    """Each frame counts its contacts once (soft and hard in one call);
+    the checkpoint's recompute under ``backward()`` counts them again.  The
     loss reads the final state's features, so the backward needs every
     frame recomputed through its feature pass, past the contacts (the
     recompute stops early where the backward needs less)."""
@@ -258,7 +258,7 @@ def test_batched_rollout_keeps_the_recomputed_frames_spans(remat):
         final.ped_f.sum().backward()
     s = profiling.summary()
     runs = 2 if remat else 1
-    assert s["contacts.frame"]["count"] == 2 * frames * runs
+    assert s["contacts.frame"]["count"] == frames * runs
     assert s["frame"]["count"] == frames * runs
     assert s["rollout"]["count"] == 1
     assert s["contacts.frame"]["stream_s"] is None  # no card
@@ -312,8 +312,8 @@ def test_training_loss_spans_its_body_and_the_label_contacts():
     s = profiling.summary()
     frames = batch.num_frames
     assert s["step.loss"]["count"] == 1
-    assert s["contacts.labels"]["count"] == 2
-    assert s["contacts.frame"]["count"] == 2 * frames
+    assert s["contacts.labels"]["count"] == 1
+    assert s["contacts.frame"]["count"] == frames
     assert s["frame"]["count"] == frames
     recs = by_name(profiling.spans())
     loss = recs["step.loss"][0]
