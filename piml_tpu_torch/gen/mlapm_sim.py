@@ -21,6 +21,7 @@ from piml_tpu_torch.gen.socialforce import (Device, SFParams, SpawnSchedule,
                                             to_scene)
 from piml_tpu_torch.models.mlapm import MLAPMParams, mlapm_step
 from piml_tpu_torch.scene import Scene
+from piml_tpu_torch.utils.profiling import annotate
 
 
 def _norm(x: torch.Tensor) -> torch.Tensor:
@@ -83,7 +84,9 @@ def simulate_mlapm(
     mask (T, N)).
 
     Integration is the MLAPM convention ``v' = v + F·dt; p' = p + v'·dt``
-    (main_mlapm.py:26), not the lagged NN-rollout Euler.
+    (main_mlapm.py:26), not the lagged NN-rollout Euler.  Under a
+    profiler each frame is a ``frame`` span, its force law an
+    ``mlapm.force`` span inside it.
     """
     sched = schedule.to(device)
     n_cap = sched.position.shape[0]
@@ -98,29 +101,30 @@ def simulate_mlapm(
     vs = torch.empty_like(ps)
     actives = torch.empty((num_frames, n_cap), device=device)
     for t in range(num_frames):
-        spawn_now = sched.spawn_frame == t
-        active = torch.maximum(active, spawn_now.to(active.dtype))
-        p = torch.where(spawn_now[:, None], sched.position, p)
-        v = torch.where(spawn_now[:, None], sched.velocity, v)
-        dest_idx = torch.where(spawn_now, 0, dest_idx)
+        with annotate("frame"):
+            spawn_now = sched.spawn_frame == t
+            active = torch.maximum(active, spawn_now.to(active.dtype))
+            p = torch.where(spawn_now[:, None], sched.position, p)
+            v = torch.where(spawn_now[:, None], sched.velocity, v)
+            dest_idx = torch.where(spawn_now, 0, dest_idx)
 
-        dest = select_waypoint(sched.waypoints,
-                               torch.clamp(dest_idx, 0, n_wp - 1))
-        v2 = mlapm_step(params, p, v, ds, dest, dt, radius)
-        p2 = p + v2 * dt
-        keep = (active == 1)[:, None]
-        p2 = torch.where(keep, p2, p)
-        v2 = torch.where(keep, v2, 0.0)
+            dest = select_waypoint(sched.waypoints,
+                                   torch.clamp(dest_idx, 0, n_wp - 1))
+            v2 = mlapm_step(params, p, v, ds, dest, dt, radius)
+            p2 = p + v2 * dt
+            keep = (active == 1)[:, None]
+            p2 = torch.where(keep, p2, p)
+            v2 = torch.where(keep, v2, 0.0)
 
-        adv = ((_norm(torch.where(torch.isnan(p2), 1e4, p2) - dest)
-                < arrive_distance) & (active == 1))
-        dest_idx = dest_idx + adv.to(dest_idx.dtype)
-        done = dest_idx > sched.dest_num - 1
-        dest_idx = torch.where(done, sched.dest_num - 1, dest_idx)
-        active = torch.where(done, 0.0, active)
-        p = torch.where((active == 1)[:, None], p2, math.nan)
-        v = v2
-        ps[t], vs[t], actives[t] = p, v, active
+            adv = ((_norm(torch.where(torch.isnan(p2), 1e4, p2) - dest)
+                    < arrive_distance) & (active == 1))
+            dest_idx = dest_idx + adv.to(dest_idx.dtype)
+            done = dest_idx > sched.dest_num - 1
+            dest_idx = torch.where(done, sched.dest_num - 1, dest_idx)
+            active = torch.where(done, 0.0, active)
+            p = torch.where((active == 1)[:, None], p2, math.nan)
+            v = v2
+            ps[t], vs[t], actives[t] = p, v, active
     return ps, vs, actives
 
 

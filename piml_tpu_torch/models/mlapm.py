@@ -23,6 +23,21 @@ import math
 
 import torch
 
+from piml_tpu_torch.utils.profiling import annotate
+
+
+@dataclasses.dataclass
+class PairCount:
+    """Pairs the force law has evaluated: every ordered pair of slots, the
+    self pair and absent slots included, ``N²`` a call of
+    :func:`mlapm_force`.  A host integer taken from the shapes, so
+    counting reads nothing from the card."""
+
+    pairs: int = 0
+
+
+PAIRS = PairCount()
+
 
 @dataclasses.dataclass(frozen=True)
 class MLAPMParams:
@@ -77,7 +92,18 @@ def mlapm_force(
     mask).
 
     position/velocity/destination: (N, 2); desired_speed: (N, 1) or (N,).
+    Counted in :data:`PAIRS`; under a profiler the ``mlapm.force`` device
+    span covers the call.
     """
+    PAIRS.pairs += position.shape[0] ** 2
+    with annotate("mlapm.force", device=True):
+        return _force(params, position, velocity, desired_speed, destination,
+                      radius)
+
+
+def _force(params: MLAPMParams, position: torch.Tensor,
+           velocity: torch.Tensor, desired_speed: torch.Tensor,
+           destination: torch.Tensor, radius: float) -> torch.Tensor:
     if desired_speed.ndim == 1:
         desired_speed = desired_speed[:, None]
 
