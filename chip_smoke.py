@@ -28,6 +28,14 @@ Phases, one line each; any failure raises and exits non-zero:
    multiple of the 64-row tile, pairs planted one ulp either side of 0.5
    and 0.25 m, one threshold, a threshold of 0; the dense and GC shapes'
    times beside their bounds;
+3d. the force-law kernel (``mlapm_force_check``) for the raw, GC, UCY and
+   UCY-intent laws: bitwise equal to the plain version on 2,000 isolated
+   pairs (one term a row) and at N = 1, 2; at N = 7 ... 12,685 every row
+   within the rounding bound of summing its terms in another order, NaN
+   and infinite entries on the same places (absent slots, zero and NaN
+   velocities, coincident agents, a NaN and an infinite goal); two calls
+   bitwise equal, one launch a call; the GC law's time at the dense shape
+   beside its bound and the plain version's;
 4. the dense-stress rollout (N = 12,685, M = 4,096, 50 frames after a
    3-frame warm-up, default ``NeighborConfig``, trained ``pinnsf_bm``
    weights): ms/frame, K2 launches and fallbacks, every live position
@@ -176,10 +184,13 @@ field-of-view top-k), and the last line is
 ``{"ok": true, "device": {...}}``.  Launch counts are zeroed just
 before each main path (phases 4-5, phase 9, phases 15c and 15d, phase
 17, and on every rank phase 18b) and read just after it: they count only
-the main paths' launches.  Phases 12-14 run no kernel of the port: dense-N OT and MMD are torch ops, and the CLI pipeline's and the
-discovery loop's GC scenes (at most ~340 agents, 4,094 obstacle points)
-stay below the 2^21 pair gate that routes the feature pass to K1 / K2;
-phase 14 reads both counts after its run to show it; phase 16's runs
+the main paths' launches.  Phases 12-13 run no kernel of the port, and
+phase 14 none but the force law's (every MLAPM frame, counted over the
+phase and required): dense-N OT and MMD are torch ops, and the CLI
+pipeline's and the discovery loop's GC scenes (at most ~340 agents,
+4,094 obstacle points) stay below the 2^21 pair gate that routes the
+feature pass to K1 / K2; phase 14 reads both counts after its run to
+show it; phase 16's runs
 are below that gate too, and so are phase 19's, whose child processes
 each append their counts to a log at exit.  It needs no network and
 starts no process besides ``nvidia-smi``, the ``nvcc`` builds, phase
@@ -671,6 +682,168 @@ def contact_counts_check(dev):
         passes[name] = pass_record(ms, plain_ms, bound)
         say("contact_counts", which=name, frames=frames, n=n,
             slices=contacts.column_slices(n)[0], **passes[name])
+    return passes
+
+
+# the force law's kernel (phase 3d): crowd sizes from one agent to the
+# dense shape, the isolated pairs of its bitwise case, and the laws of
+# tests/test_torch_gen.py (the GC law at its published constants)
+MLAPM_SIZES = (1, 2, 7, 63, 64, 65, 337, 3000, N_AGENTS)
+MLAPM_PAIRS = 2000
+MLAPM_LAWS = {
+    "raw": dict(version="raw", A=4.0, B=-2.0),
+    "GC": dict(version="GC"),
+    "UCY": dict(version="UCY", tau=5 / 6, A=10.67, B=-3.33, C=0.0, D=0.0,
+                theta=10.0, ucy_gate_compat=True),
+    "UCY-intent": dict(version="UCY", tau=5 / 6, A=10.67, B=-3.33, C=0.0,
+                       D=0.0, theta=10.0, ucy_gate_compat=False),
+}
+F32_ULP = 2.0 ** -24
+
+
+def mlapm_inputs(rs, n, extent):
+    """A crowd of ``n`` slots at the dense cell's density (at least 3 m
+    across): 15 % absent (NaN), every ninth velocity 0, one velocity with
+    a NaN component, two coincident agents, one NaN goal and one goal with
+    an infinite coordinate (its goal direction is (NaN, −0): the cross
+    product is NaN, the y force finite)."""
+    import numpy as np
+
+    p = (rs.rand(n, 2) * extent).astype(np.float32)
+    p[rs.rand(n) < 0.15] = np.nan
+    v = (rs.randn(n, 2) * 1.34).astype(np.float32)
+    v[::9] = 0.0
+    dest = (rs.rand(n, 2) * extent).astype(np.float32)
+    if n >= 5:
+        p[:4] = (rs.rand(4, 2) * extent).astype(np.float32)
+        p[1] = p[0]
+        v[2, 0] = np.nan
+        dest[3] = np.nan
+        dest[4] = (np.inf, dest[4, 1])
+    return p, v, dest
+
+
+def isolated_pairs(rs, pairs):
+    """``pairs`` pairs of agents 0-2 m apart on a grid 60 m wide:
+    a far pair's exponential underflows to 0 for the raw, GC and
+    UCY-intent laws, so each row's sum has one term and any order gives
+    its bits.  Coincident pairs, pairs on the goal's line (cross product
+    0), absent members, zero velocities, NaN and infinite goals."""
+    import numpy as np
+
+    side = math.ceil(math.sqrt(pairs))
+    k = np.arange(pairs)
+    centre = np.stack([k % side, k // side], 1).astype(np.float32) * 60.0
+    off = ((rs.rand(pairs, 2) - 0.5) * 2.8).astype(np.float32)
+    off[::17] = 0.0                                        # coincident
+    on_line = np.arange(5, pairs, 13)
+    off[on_line, 1] = 0.0
+    p = np.empty((2 * pairs, 2), np.float32)
+    p[0::2], p[1::2] = centre, centre + off
+    v = (rs.randn(2 * pairs, 2) * 1.34).astype(np.float32)
+    v[::11] = 0.0
+    dest = np.repeat(centre, 2, 0) + (
+        (rs.rand(2 * pairs, 2) - 0.5) * 20).astype(np.float32)
+    dest[2 * on_line] = centre[on_line] + np.float32(5.0)  # e = (1, 0)
+    dest[2 * on_line, 1] = centre[on_line, 1]
+    dest[7::97] = np.nan
+    dest[9::89, 0] = np.inf
+    p[np.arange(3, 2 * pairs, 41)] = np.nan
+    return p, v, dest
+
+
+def mlapm_force_check(dev):
+    """Phase 3d: the force-law kernel against its plain version on the
+    card.  Isolated pairs (one term a row) and N = 1, 2 are bit for bit:
+    each pair term has the plain version's bits.  Elsewhere only the order
+    of the sum over ``j`` differs, so each row's gap is held to the worst
+    case of rounding two sums of the same N terms in any two orders and
+    subtracting each from the goal term ``g``: ``2·γ_{N+1}·(Σ_j |t_ij| +
+    |g_i|)``, ``γ_m = m·u / (1 − m·u)``, ``u = 2^-24``.  NaN and infinite
+    entries fall on the same places; two calls give the same bits; each
+    call counts one launch.  ``queued_ms`` of the GC law at the dense
+    shape beside ``benchmark/yardstick/pair_law.py``'s 44 FLOP a pair at
+    67 TFLOP/s, and the plain version's."""
+    import numpy as np
+    import torch
+
+    from benchmark.yardstick import pair_law
+    from piml_tpu_torch.models import MLAPMParams, mlapm
+    from piml_tpu_torch.ops import mlapm as mlapm_ops
+
+    rs = np.random.RandomState(SEED + 17)
+
+    def run(params, p, v, dest):
+        p, v, dest = (torch.as_tensor(a, device=dev) for a in (p, v, dest))
+        ds = torch.full((p.shape[0],), 1.34, device=dev)
+        launches = mlapm_ops.KERNEL.launches
+        got = mlapm.mlapm_force(params, p, v, ds, dest)
+        again = mlapm.mlapm_force(params, p, v, ds, dest)
+        ref = mlapm._force(params, p, v, ds, dest, 0.3)
+        torch.cuda.synchronize()
+        if mlapm_ops.KERNEL.launches != launches + 2:
+            raise AssertionError("mlapm: not one launch a call")
+        if not torch.equal(got.view(torch.int32), again.view(torch.int32)):
+            raise AssertionError("mlapm: two calls differ")
+        for what, f in (("NaN", torch.isnan), ("inf", torch.isinf)):
+            if not torch.equal(f(got), f(ref)):
+                raise AssertionError(f"mlapm: {what} entries differ")
+        return (p, v, ds, dest), got, ref
+
+    cases = []
+    for law, kw in MLAPM_LAWS.items():
+        params = MLAPMParams(**kw)
+        if law != "UCY":   # far pairs of the compat law push with A
+            p, v, dest = isolated_pairs(rs, MLAPM_PAIRS)
+            _, got, ref = run(params, p, v, dest)
+            fin = torch.isfinite(ref)
+            if not torch.equal(got[fin], ref[fin]):
+                raise AssertionError(f"mlapm {law} isolated pairs: not "
+                                     f"bitwise equal")
+            cases.append(dict(law=law, n=2 * MLAPM_PAIRS, case="isolated",
+                              bitwise_equal=True,
+                              nan_rows=int(torch.isnan(ref).any(1).sum())))
+        for n in MLAPM_SIZES:
+            extent = max(3.0, 200.0 * math.sqrt(n / N_AGENTS))
+            args, got, ref = run(params, *mlapm_inputs(rs, n, extent))
+            fin = torch.isfinite(ref)
+            gap = (got - ref).abs()
+            if n <= 2:
+                if not torch.equal(got[fin], ref[fin]):
+                    raise AssertionError(f"mlapm {law} N={n}: not bitwise "
+                                         f"equal")
+            ed, goal = mlapm._goal(params, *args)
+            scale = mlapm._pair_terms(params, args[0], args[1], ed,
+                                      0.3).abs().sum(dim=1) + goal.abs()
+            m = (n + 1) * F32_ULP
+            tol = 2 * m / (1 - m) * scale
+            ratio = float((gap[fin] / tol[fin]).max()) if fin.any() else 0.0
+            if not ratio <= 1.0:
+                raise AssertionError(f"mlapm {law} N={n}: a row's gap is "
+                                     f"{ratio} of its bound")
+            rel = gap[fin] / ref[fin].abs().clamp_min(1e-30)
+            cases.append(dict(
+                law=law, n=n, splits=mlapm_ops.column_splits(n)[0],
+                max_gap_over_bound=ratio,
+                max_abs_gap=float(gap[fin].max()) if fin.any() else 0.0,
+                median_rel_gap=float(rel.median()) if fin.any() else 0.0,
+                nan_entries=int(torch.isnan(ref).sum())))
+            del args, got, ref, gap, scale, tol
+    say("mlapm_force_cases", cases=cases)
+
+    n = N_AGENTS
+    params = MLAPMParams.gc_paper()
+    p, v, dest = (torch.as_tensor(a, device=dev)
+                  for a in mlapm_inputs(rs, n, 200.0))
+    ds = torch.full((n,), 1.34, device=dev)
+    ms = queued_ms(lambda: mlapm.mlapm_force(params, p, v, ds, dest), 20)
+    plain_ms = queued_ms(lambda: mlapm._force(params, p, v, ds, dest, 0.3),
+                         2)
+    bound = dict(bound_ms=pair_law.frame_flops(n) / 67e12 * 1e3,
+                 bound_by="operations", bound_pairs=n * n)
+    passes = {"gc_dense": pass_record(ms, plain_ms, bound)}
+    say("mlapm_force", which="gc_dense", n=n,
+        splits=mlapm_ops.column_splits(n)[0], **passes["gc_dense"])
     return passes
 
 
@@ -2642,6 +2815,7 @@ def main():
     from piml_tpu_torch import _build
     from piml_tpu_torch.engine import training_rollout_loss
     from piml_tpu_torch.ops import banded, contacts, pairwise
+    from piml_tpu_torch.ops import mlapm as mlapm_ops
     from piml_tpu_torch.physics import NeighborConfig, heading_direction, \
         relative_features
 
@@ -2733,6 +2907,9 @@ def main():
 
     # ---- 3c. the contact-count kernel --------------------------------------
     contact_passes = contact_counts_check(dev)
+
+    # ---- 3d. the force-law kernel ------------------------------------------
+    mlapm_passes = mlapm_force_check(dev)
 
     # ---- 4./5. the main path: dense-stress rollouts -------------------------
     cfg, model = trained_model(dev)
@@ -3017,9 +3194,14 @@ def main():
         cli_pipeline(dev, tmp)
 
     # ---- 14. the discovery loop -----------------------------------------------
+    gen_launches = mlapm_ops.KERNEL.launches
     with tempfile.TemporaryDirectory() as tmp:
         scenes = generate_gc(dev, tmp)
         discovery_loop(dev, tmp, scenes["socialforce"])
+    gen_launches = mlapm_ops.KERNEL.launches - gen_launches
+    if not gen_launches:
+        raise AssertionError("discovery loop: the MLAPM kernel never "
+                             "launched")
 
     # ---- 15. the model zoo ----------------------------------------------------
     zoo_forwards(dev, data)
@@ -3074,6 +3256,12 @@ def main():
                       "collision_detection_single_frame",
              launches_finetune=ft_launches["contacts"], library_ms=None,
              passes=contact_passes),
+        dict(name="mlapm_force", route="cuda",
+             source="piml_tpu_torch/csrc/mlapm_force.cu",
+             replaces="none: XLA fuses the law's pair arithmetic in "
+                      "piml_tpu/models/mlapm.py mlapm_force",
+             launches_generate_gc=gen_launches, library_ms=None,
+             passes=mlapm_passes),
         dict(name="banded_topk (K2), agent-sharded caller", route="cuda",
              source="piml_tpu_torch/csrc/banded_topk.cu",
              replaces="piml_tpu/parallel/agent_shard.py:286",

@@ -40,6 +40,7 @@ LIB_NAME = "libpiml_topk.so"
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_FP = ctypes.POINTER(ctypes.c_float)
 _SIGNATURES = {
     # rows, n, cols, m, slices, cols_per_slice, cos_thr, self_pairs, k,
     # out_d, out_i, stream
@@ -52,6 +53,10 @@ _SIGNATURES = {
     # pos, frames, n, slices, cols_per_slice, thresholds, thr0, thr1,
     # out0, out1, stream
     "piml_contact_counts": (_P, _I, _I, _I, _I, _I, _F, _F, _P, _P, _P),
+    # pos, vel, dir, goal, n, splits, cols_per_split, law, A, B, C, D,
+    # coll, rot, partial, out, stream
+    "piml_mlapm_force": (_P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _F, _F, _F,
+                         _FP, _P, _P, _P),
 }
 
 

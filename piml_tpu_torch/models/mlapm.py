@@ -19,10 +19,13 @@ src/main_mlapm.py:26 vs src/models/simulators.py:602-604).
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
+from typing import Tuple
 
 import torch
 
+from piml_tpu_torch.ops import mlapm as mlapm_ops
 from piml_tpu_torch.utils.profiling import annotate
 
 
@@ -92,24 +95,70 @@ def mlapm_force(
     mask).
 
     position/velocity/destination: (N, 2); desired_speed: (N, 1) or (N,).
-    Counted in :data:`PAIRS`; under a profiler the ``mlapm.force`` device
-    span covers the call.
+    A CPU tensor takes the plain version (:func:`_force`), a CUDA tensor
+    the kernel of ``ops/mlapm.py`` (no pair tensor; it raises rather than
+    fall back).  Counted in :data:`PAIRS`; under a profiler the
+    ``mlapm.force`` device span covers the call.
     """
     PAIRS.pairs += position.shape[0] ** 2
     with annotate("mlapm.force", device=True):
-        return _force(params, position, velocity, desired_speed, destination,
-                      radius)
+        if position.device.type == "cpu":
+            return _force(params, position, velocity, desired_speed,
+                          destination, radius)
+        ed, force = _goal(params, position, velocity, desired_speed,
+                          destination)
+        return mlapm_ops.mlapm_force_cuda(
+            params, position.contiguous(), velocity.contiguous(), ed, force,
+            radius, _rotations(params.theta, position.device))
+
+
+def _goal(params: MLAPMParams, position: torch.Tensor,
+          velocity: torch.Tensor, desired_speed: torch.Tensor,
+          destination: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Each agent's goal direction ``e`` and self-propulsion
+    ``(s·e − v) / τ``."""
+    if desired_speed.ndim == 1:
+        desired_speed = desired_speed[:, None]
+    ed = _normalize(destination - position)
+    return ed, (desired_speed * ed - velocity) / params.tau
+
+
+def _angle(theta: float, sign: torch.Tensor) -> torch.Tensor:
+    """The rotation angle of a pair whose cross product ``(p_j − p_i) ×
+    e_i`` has sign ``sign``: ``−sign · θ``, and ``+θ`` where that is 0."""
+    angle = -sign * theta / 180.0 * math.pi
+    return torch.where(angle == 0, theta / 180.0 * math.pi, angle)
+
+
+@functools.lru_cache(maxsize=None)
+def _rotations(theta: float, device: torch.device) -> Tuple[float, ...]:
+    """``(cos, sin)`` of :func:`_angle` where the cross product is > 0,
+    < 0, 0 and NaN, computed on ``device`` as the plain version computes
+    them there (``torch.sign`` takes NaN to 0): the rotations the kernel
+    selects from, flattened.  One blocking read per angle and device."""
+    sign = torch.sign(torch.tensor([1.0, -1.0, 0.0, math.nan],
+                                   device=device))
+    angle = _angle(theta, sign)
+    return tuple(torch.stack([torch.cos(angle), torch.sin(angle)], dim=-1)
+                 .flatten().tolist())
 
 
 def _force(params: MLAPMParams, position: torch.Tensor,
            velocity: torch.Tensor, desired_speed: torch.Tensor,
            destination: torch.Tensor, radius: float) -> torch.Tensor:
-    if desired_speed.ndim == 1:
-        desired_speed = desired_speed[:, None]
+    """The plain version of :func:`mlapm_force`, over ``(N, N)`` pair
+    tensors."""
+    ed, force = _goal(params, position, velocity, desired_speed,
+                      destination)
+    terms = _pair_terms(params, position, velocity, ed, radius)
+    return force - torch.sum(terms, dim=1)
 
-    ed = _normalize(destination - position)
-    force = (desired_speed * ed - velocity) / params.tau
 
+def _pair_terms(params: MLAPMParams, position: torch.Tensor,
+                velocity: torch.Tensor, ed: torch.Tensor,
+                radius: float) -> torch.Tensor:
+    """``(N, N, 2)``: the repulsion of agent ``j`` on agent ``i``,
+    ``where(gate_ij, mag_ij · R(±θ) r̂_ij, 0)``."""
     vr = position[None, :, :] - position[:, None, :]    # N, N, 2 (j - i)
     finite = torch.isfinite(vr).all(dim=-1, keepdim=True)
     vr_safe = torch.where(finite, vr, 0.0)
@@ -124,10 +173,9 @@ def _force(params: MLAPMParams, position: torch.Tensor,
         mag = params.A * torch.exp(params.B * r)
     elif params.version in {"GC", "UCY"}:
         vv = vv[None, :, :] - vv[:, None, :]              # N, N, 2
-        theta = (-torch.sign(vr_safe[..., 0] * ed[:, None, 1]
-                             - vr_safe[..., 1] * ed[:, None, 0])
-                 * params.theta / 180.0 * math.pi)
-        theta = torch.where(theta == 0, params.theta / 180.0 * math.pi, theta)
+        theta = _angle(params.theta,
+                       torch.sign(vr_safe[..., 0] * ed[:, None, 1]
+                                  - vr_safe[..., 1] * ed[:, None, 0]))
         c, s = torch.cos(theta), torch.sin(theta)
         direc = torch.stack([c * direc[..., 0] - s * direc[..., 1],
                              s * direc[..., 0] + c * direc[..., 1]], dim=-1)
@@ -158,8 +206,7 @@ def _force(params: MLAPMParams, position: torch.Tensor,
     else:
         raise NotImplementedError(params.version)
 
-    repulsion = torch.sum(torch.where(gate, mag * direc, 0.0), dim=1)
-    return force - repulsion
+    return torch.where(gate, mag * direc, 0.0)
 
 
 def mlapm_step(

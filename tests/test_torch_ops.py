@@ -14,6 +14,8 @@ tolerances:
   an arbitrary id there, so those indices are not compared.
 """
 
+import dataclasses
+import math
 import os
 
 import numpy as np
@@ -26,7 +28,8 @@ from piml_tpu.ops.grid_pairs import build_cell_index as jax_cell_index
 from piml_tpu.ops.pairwise import topk_neighbors_pallas as jax_dense
 from piml_tpu.physics.features import heading_direction as jax_heading
 from piml_tpu_torch import _build
-from piml_tpu_torch.ops import banded, contacts, grid_pairs, pairwise
+from piml_tpu_torch.models import mlapm as mlapm_model
+from piml_tpu_torch.ops import banded, contacts, grid_pairs, mlapm, pairwise
 from piml_tpu_torch.scene import codec
 
 
@@ -171,6 +174,100 @@ def test_contact_column_slices_cover_each_column_once(n):
     for s in range(slices):
         hits[s * per:min(n, (s + 1) * per)] += 1
     np.testing.assert_array_equal(hits, 1)
+
+# ---------------------------------------------------------------------------
+# MLAPM's all-pairs force law
+# ---------------------------------------------------------------------------
+
+def test_mlapm_wrapper_refuses_bad_inputs_before_any_launch(monkeypatch):
+    """The force-law kernel's wrapper validates dtype, shape, layout, the
+    device, the rotation table and the law's version, and raises before
+    touching the library or counting a launch; a well-formed CPU call is
+    refused too (the CUDA route never falls back)."""
+    def no_library():
+        raise AssertionError("the library was reached")
+
+    monkeypatch.setattr(_build.LIBRARY, "get", no_library)
+    gc = mlapm_model.MLAPMParams.gc_paper()
+    x = torch.zeros((5, 2))
+    rot = (1.0, 0.0) * 4
+    launches = mlapm.KERNEL.launches
+
+    def call(params=gc, pos=x, vel=x, rotations=rot):
+        return mlapm.mlapm_force_cuda(params, pos, vel, x, x, 0.3, rotations)
+
+    with pytest.raises(TypeError):
+        call(pos=x.double())
+    with pytest.raises(TypeError):
+        call(vel=x.half())
+    with pytest.raises(ValueError):                 # not (N, 2)
+        call(pos=torch.zeros((5, 3)))
+    with pytest.raises(ValueError):                 # no agent axis
+        call(pos=torch.zeros(2))
+    with pytest.raises(ValueError):                 # another N
+        call(vel=torch.zeros((4, 2)))
+    with pytest.raises(ValueError):                 # not contiguous
+        call(vel=torch.zeros((2, 5)).t())
+    with pytest.raises(ValueError, match="rotation"):
+        call(rotations=rot[:6])
+    with pytest.raises(ValueError, match="version"):
+        call(params=dataclasses.replace(gc, version="SF"))
+    with pytest.raises(ValueError, match="CUDA"):   # well-formed, on the CPU
+        call()
+    assert mlapm.KERNEL.launches == launches
+
+
+@pytest.mark.parametrize("n", [0, 1, 7, 337, 3000, 12685, 100003])
+def test_mlapm_column_splits_cover_each_column_once(n):
+    """The force-law kernel's column split: 1 to ``MAX_SPLITS`` splits,
+    none under ``MIN_SPLIT_COLS`` columns unless there is one (a single
+    split for the demo's 7 agents and the GC scene's 337 slots), and the
+    splits ``[s·per, min(n, (s + 1)·per))`` cover each column exactly
+    once."""
+    splits, per = mlapm.column_splits(n)
+    assert 1 <= splits <= mlapm.MAX_SPLITS
+    assert per >= 1 and splits * per >= n
+    assert splits == 1 or per >= mlapm.MIN_SPLIT_COLS
+    assert splits == 1 or n > 337
+    hits = np.zeros(n, np.int64)
+    for s in range(splits):
+        hits[s * per:min(n, (s + 1) * per)] += 1
+    np.testing.assert_array_equal(hits, 1)
+
+
+@pytest.mark.parametrize("version", ["raw", "GC", "UCY"])
+def test_mlapm_cpu_call_takes_the_plain_version(rng, version):
+    """A CPU call of ``mlapm_force`` is the plain version, pair tensors and
+    all, and launches nothing."""
+    n = 30
+    p = torch.from_numpy((rng.rand(n, 2) * 5).astype(np.float32))
+    v = torch.from_numpy(rng.randn(n, 2).astype(np.float32))
+    dest = torch.from_numpy((rng.rand(n, 2) * 5).astype(np.float32))
+    ds = torch.full((n,), 1.3)
+    params = mlapm_model.MLAPMParams(version=version)
+    launches = mlapm.KERNEL.launches
+    got = mlapm_model.mlapm_force(params, p, v, ds, dest)
+    assert mlapm.KERNEL.launches == launches
+    ed, goal = mlapm_model._goal(params, p, v, ds, dest)
+    terms = mlapm_model._pair_terms(params, p, v, ed, 0.3)
+    assert terms.shape == (n, n, 2)
+    assert torch.equal(got, goal - terms.sum(dim=1))
+
+
+def test_mlapm_rotations_are_the_plain_rotation_of_each_class():
+    """The table the kernel selects from holds, for a cross product > 0,
+    < 0, 0 and NaN in that order, the (cos, sin) that the plain version's
+    rotation takes for such a pair; the angle where the product is 0 is
+    ``θ`` rounded from double, which need not be the float path's ``+θ``."""
+    theta = 56.0
+    rot = mlapm_model._rotations(theta, torch.device("cpu"))
+    assert len(rot) == 8
+    cross = torch.tensor([2.5, -1e-30, 0.0, -0.0, math.nan])
+    angle = mlapm_model._angle(theta, torch.sign(cross))
+    c, s = torch.cos(angle).tolist(), torch.sin(angle).tolist()
+    for k, cls in enumerate((0, 1, 2, 2, 3)):
+        assert (c[k], s[k]) == rot[2 * cls:2 * cls + 2]
+    assert rot[0:2] == (rot[2], -rot[3])
 
 # ---------------------------------------------------------------------------
 # K2: banded selection
