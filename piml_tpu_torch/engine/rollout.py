@@ -37,7 +37,8 @@ from piml_tpu_torch.physics import (
     heading_direction,
     relative_features,
 )
-from piml_tpu_torch.physics.features import _GATE, prepare_obstacle_index
+from piml_tpu_torch.physics.features import (engine_uses_grid,
+                                             prepare_obstacle_index)
 from piml_tpu_torch.utils.profiling import annotate
 
 
@@ -121,11 +122,11 @@ def make_features_fn(cfg: EngineConfig, obstacles: torch.Tensor,
     route of ``relative_features``).
 
     ``cfg.shard_agents`` shards the pair pass of an ``(N, 2)`` frame over
-    ``mesh``'s ``mesh_axis`` (``parallel/agent_shard.py``), with the JAX
-    package's gate (piml_tpu/engine/rollout.py:168-172) less its "on a
-    TPU" condition, as the single-device route drops it: K2 under
-    sharding when ``use_grid_topk`` and N² ≥ 2^21 (on the CPU, its plain
-    version), else the ring pass."""
+    ``mesh``'s ``mesh_axis`` (``parallel/agent_shard.py``): K2 under
+    sharding where ``engine_uses_grid`` (the JAX package's gate,
+    piml_tpu/engine/rollout.py:168-172, less its "on a TPU" condition, as
+    the single-device route drops it; on the CPU, K2's plain version), else
+    the ring pass."""
     if cfg.shard_agents and mesh is None:
         raise ValueError("EngineConfig.shard_agents requires a mesh")
 
@@ -139,7 +140,7 @@ def make_features_fn(cfg: EngineConfig, obstacles: torch.Tensor,
                 if p.ndim != 2:
                     raise ValueError("shard_agents takes one (N, 2) frame")
                 sharded = (agent_shard.sharded_banded_features
-                           if ncfg.use_grid_topk and p.shape[0] ** 2 >= _GATE
+                           if engine_uses_grid(p.shape[0], ncfg)
                            else agent_shard.sharded_relative_features)
                 ped_f, obs_f, dest_f = sharded(p, v, a, dest, obstacles, ncfg,
                                                mesh, mesh_axis)

@@ -27,7 +27,7 @@ from piml_tpu_torch.engine.rollout import (
 from piml_tpu_torch.metrics import (collision_count, mae_with_time_mask,
                                     mmd_with_time_mask, ot_with_time_mask)
 from piml_tpu_torch.physics import collision_detection_single_frame
-from piml_tpu_torch.physics.features import _GATE
+from piml_tpu_torch.physics.features import engine_uses_grid
 from piml_tpu_torch.train import losses
 from piml_tpu_torch.utils.profiling import annotate
 
@@ -260,8 +260,7 @@ def training_rollout_loss(model: Callable, cfg: PIMLConfig,
             remat=remat)
         use_batched = cfg.channel_batched_bptt
         if use_batched is None:
-            use_batched = (ecfg.neighbor.use_grid_topk
-                           and n_agents * n_agents >= _GATE and on_card)
+            use_batched = engine_uses_grid(n_agents, ecfg.neighbor) and on_card
         if not use_batched:
             ecfg = dataclasses.replace(
                 ecfg, neighbor=ecfg.neighbor._replace(use_grid_topk=False))

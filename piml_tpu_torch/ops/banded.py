@@ -23,8 +23,8 @@ Host side (plain tensor code, as in the JAX package):
    the unexamined-region bound (or the box covers the grid, or — with
    ``dist_threshold`` — the bound exceeds the threshold), and no tile's
    window overflowed.  :func:`topk_neighbors_banded_or_dense` reads that
-   flag on the host once per frame and recomputes with the dense path
-   when it is false.
+   flag on the host once per frame (:func:`read_exact`) and recomputes
+   with the dense path when it is false.
 
 :func:`topk_neighbors_banded_batched` runs C frames (the window channels
 of the BPTT finetune) through ONE launch with a channel grid axis, as
@@ -500,6 +500,13 @@ def topk_neighbors_banded_batched(
                    [None] * chans)
 
 
+def read_exact(exact: torch.Tensor) -> bool:
+    """The host's one blocking read of K2's exactness flag; a batch's
+    ``(C,)`` flags make one decision (``lax.cond(jnp.all(exact), ...)``)."""
+    with annotate("sync.k2_exact"):
+        return bool(exact if exact.ndim == 0 else exact.all())
+
+
 def topk_neighbors_banded_or_dense(
     position: torch.Tensor,
     heading: torch.Tensor,
@@ -511,37 +518,21 @@ def topk_neighbors_banded_or_dense(
     dist_threshold: Optional[float] = None,
     **kw,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Always-exact selector: the banded result when provably exact, else
-    ``dense_fn()``.  The flag is read on the host (one sync per call);
-    fallbacks are counted in ``KERNEL.fallbacks``."""
-    bd, bi, exact = topk_neighbors_banded(
-        position, heading, k, angle_threshold, objects=objects,
-        same_objects=same_objects, dist_threshold=dist_threshold, **kw)
-    with annotate("sync.k2_exact"):
-        exact = bool(exact)
-    if exact:
-        return bd, bi
-    KERNEL.fallbacks += 1
-    return dense_fn()
-
-
-def topk_neighbors_banded_batched_or_dense(
-    position: torch.Tensor,
-    heading: torch.Tensor,
-    k: int,
-    angle_threshold: float,
-    dense_fn: Callable[[], Tuple[torch.Tensor, torch.Tensor]],
-    **kw,
-) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Always-exact channel-batched selector: the banded result when every
-    channel is provably exact, else ``dense_fn()`` for the whole batch —
-    the JAX package's ``lax.cond(jnp.all(exact), ...)``.  One host read
-    per call; fallbacks are counted in ``KERNEL.fallbacks``."""
-    bd, bi, exact = topk_neighbors_banded_batched(
-        position, heading, k, angle_threshold, **kw)
-    with annotate("sync.k2_exact"):
-        exact = bool(exact.all())
-    if exact:
+    """Always-exact selector over an ``(N, 2)`` frame or a ``(C, N, 2)``
+    batch (:func:`topk_neighbors_banded_batched`, where ``objects=None``
+    means each channel's own agents and ``same_objects`` is not read): the
+    banded result when provably exact, else ``dense_fn()`` for the whole
+    call.  One host read per call (:func:`read_exact`); fallbacks are
+    counted in ``KERNEL.fallbacks``."""
+    if position.ndim == 3:
+        bd, bi, exact = topk_neighbors_banded_batched(
+            position, heading, k, angle_threshold, objects=objects,
+            dist_threshold=dist_threshold, **kw)
+    else:
+        bd, bi, exact = topk_neighbors_banded(
+            position, heading, k, angle_threshold, objects=objects,
+            same_objects=same_objects, dist_threshold=dist_threshold, **kw)
+    if read_exact(exact):
         return bd, bi
     KERNEL.fallbacks += 1
     return dense_fn()

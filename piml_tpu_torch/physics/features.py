@@ -5,28 +5,10 @@ src/data/data.py:343-744).  NaN conventions match the reference: absent
 agents carry NaN positions, which become +inf distances and therefore
 zero-padded features.
 
-Routing of the neighbour selection (``relative_features``) is the JAX
-package's, with "the backend is a TPU" read as "the tensor is on a CUDA
-device":
-
-- a single frame (rank 2) whose pair grid reaches 2^21 goes through the
-  hand-written kernels on the card: K2 (``ops/banded.py``) when
-  ``use_grid_topk``, with K1 (``ops/pairwise.py``) as its exact fallback,
-  or K1 directly; past ``DENSE_COLUMN_CEILING`` agents the agent pass's
-  fallback is a second K2 pass on a half-resolution grid
-  (:func:`_banded_wide_fallback`), where the JAX package's dense kernel
-  stops;
-- ``batched=True`` with a rank-3 ``(C, N, 2)`` batch of frames (the
-  channeled BPTT finetune) past the same gate: the channel-batched K2, one
-  launch per pass for all channels and ONE exactness decision for the
-  whole batch, whose fallback is :func:`nearby_in_sight` over ``(C, N, M)``
-  (the JAX package's dense kernel takes single frames only);
-- otherwise — and on the CPU — :func:`nearby_in_sight`'s matmul-expansion
-  distances.  With ``use_pallas_topk=False`` a large frame takes the banded
-  path even on the CPU (its plain version), as JAX does in interpret mode.
-
-The selected distances feed threshold comparisons only, so the selection
-runs without autograd; gradients flow through the gathered states.
+The neighbour selection's route is chosen in one place,
+:func:`selection_routes`.  The selected distances feed threshold
+comparisons only, so the selection runs without autograd; gradients flow
+through the gathered states.
 """
 
 from __future__ import annotations
@@ -37,7 +19,6 @@ from typing import NamedTuple, Optional, Tuple, Union
 import torch
 
 from piml_tpu_torch.ops import banded, contacts, pairwise
-from piml_tpu_torch.utils.profiling import annotate
 
 INF = math.inf
 _GATE = 2 ** 21
@@ -201,23 +182,75 @@ def _lane_padded(m: int) -> int:
     return max(128, -(-m // 128) * 128)
 
 
+# The selectors of a route (:func:`selection_routes`).
+BANDED = "banded"                  # K2 over one (N, 2) frame
+BANDED_BATCHED = "banded_batched"  # K2 over a (C, N, 2) batch, one launch
+K1 = "k1"                          # the dense kernel, ops/pairwise.py
+HALF_GRID = "half_grid"            # K2 on the half grid, used as it comes
+DENSE = "dense"                    # nearby_in_sight
+Route = Tuple[str, ...]            # a selector, then a K2 one's fallback
+
+
+def selection_routes(n_agents: int, n_objects: int, rank: int,
+                     batched: bool, on_card: bool, cfg: NeighborConfig
+                     ) -> Tuple[Route, Route]:
+    """The agent pass's and the obstacle pass's routes, which
+    :func:`relative_features` takes and :func:`prepare_obstacle_index`
+    builds its index for: the JAX package's, with "the backend is a TPU"
+    read as ``on_card``, its size gate read on the lane-padded table.
+
+    - a single frame (rank 2) whose pair grid reaches 2^21 goes through the
+      hand-written kernels on the card: K2 (``ops/banded.py``) when
+      ``use_grid_topk``, with K1 (``ops/pairwise.py``) as its exact
+      fallback, or K1 directly; past ``DENSE_COLUMN_CEILING`` agents the
+      agent pass's fallback is a second K2 pass on a half-resolution grid
+      (:func:`_banded_wide_fallback`), where the JAX package's dense
+      kernel stops;
+    - ``batched`` with a rank-3 ``(C, N, 2)`` batch of frames (the
+      channeled BPTT finetune) past the same gate: the channel-batched K2,
+      one launch per pass for all channels and ONE exactness decision for
+      the whole batch, whose fallback is :func:`nearby_in_sight` over
+      ``(C, N, M)`` (the JAX package's dense kernel takes single frames
+      only);
+    - otherwise — and on the CPU — :func:`nearby_in_sight`'s
+      matmul-expansion distances.  With ``use_pallas_topk=False`` a large
+      frame takes the banded path even on the CPU (its plain version), as
+      JAX does in interpret mode.
+    """
+    ped_big = n_agents * _lane_padded(n_agents) >= _GATE
+    obs_big = n_agents * _lane_padded(n_objects) >= _GATE
+    kernel = cfg.use_pallas_topk and on_card and rank == 2 and ped_big
+    wide = _lane_padded(n_agents) > DENSE_COLUMN_CEILING
+    ped_exact = (HALF_GRID if wide else K1) if kernel else DENSE
+    obs_exact = K1 if kernel and obs_big else DENSE
+    band = (BANDED if rank == 2
+            else BANDED_BATCHED if rank == 3 and batched else None)
+    if not (band and cfg.use_grid_topk and ped_big
+            and (on_card or not cfg.use_pallas_topk)):
+        return (ped_exact,), (obs_exact,)
+    return (band, ped_exact), (band, obs_exact) if obs_big else (obs_exact,)
+
+
+def engine_uses_grid(n_agents: int, cfg: NeighborConfig) -> bool:
+    """The engine's gate of the banded selector (the sharded pair pass; the
+    finetune's grid): ``use_grid_topk`` and N² ≥ 2^21, where the feature
+    pass reads N times the lane-padded N.  The two disagree for 1,409-1,448
+    agents, as in piml_tpu/engine/simulator.py:313-316."""
+    return cfg.use_grid_topk and n_agents * n_agents >= _GATE
+
+
 def prepare_obstacle_index(n_agents: int, obstacles: torch.Tensor,
                            cfg: NeighborConfig):
     """The banded selector's obstacle index, built once per rollout for the
     static obstacle table; None when the banded obstacle pass would not
     engage for these shapes (safe to pass to :func:`relative_features`
-    either way)."""
+    either way); the channel-batched pass engages as the single frame's."""
     m = obstacles.shape[0]
-    engaged = (
-        cfg.use_grid_topk
-        and n_agents * _lane_padded(n_agents) >= _GATE
-        and n_agents * _lane_padded(m) >= _GATE
-        and (_on_card(obstacles) or not cfg.use_pallas_topk)
-    )
-    if not engaged:
+    _, obs_route = selection_routes(n_agents, m, 2, False,
+                                    _on_card(obstacles), cfg)
+    if obs_route[0] != BANDED:
         return None
-    k_obs = min(cfg.topk_obs, m)
-    g_o, w_o = _obstacle_params(n_agents, m, k_obs)
+    g_o, w_o = _obstacle_params(n_agents, m, min(cfg.topk_obs, m))
     return banded.build_object_index(obstacles, g_o, w_o)
 
 
@@ -251,9 +284,7 @@ def _banded_wide_fallback(position: torch.Tensor, heading: torch.Tensor,
         position, heading, k, sight_angle, dist_threshold=dist_threshold,
         grid_dim=g2, window=w2)
     banded.KERNEL.wide_calls += 1
-    with annotate("sync.k2_exact"):
-        exact = bool(exact)
-    if not exact:
+    if not banded.read_exact(exact):
         banded.KERNEL.wide_relaxed += 1
     return bd, bi
 
@@ -263,6 +294,35 @@ def _obstacle_params(n_agents: int, m: int, k_obs: int):
     package, from the lane-padded table, so both packages bin the same
     grid and prove exactness over the same windows."""
     return banded.banded_params(n_agents, _lane_padded(m), k_obs, fine=True)
+
+
+def _select(route: Route, position: torch.Tensor, heading: torch.Tensor,
+            k: int, sight_angle: float, dist_threshold: float,
+            obstacles: Optional[torch.Tensor] = None, **k2_kw
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One pass's selection by ``route``: among the agents when
+    ``obstacles`` is None, else among the static table.  ``k2_kw`` go to
+    the K2 selector."""
+    same = obstacles is None
+    if route[0] in (BANDED, BANDED_BATCHED):
+        return banded.topk_neighbors_banded_or_dense(
+            position, heading, k, sight_angle,
+            lambda: _select(route[1:], position, heading, k, sight_angle,
+                            dist_threshold, obstacles),
+            objects=obstacles, same_objects=same,
+            dist_threshold=dist_threshold, **k2_kw)
+    if route[0] == K1:
+        return pairwise.topk_neighbors_pallas(
+            position, heading, k, sight_angle, objects=obstacles,
+            same_objects=same)
+    if route[0] == HALF_GRID:
+        return _banded_wide_fallback(position, heading, k, sight_angle,
+                                     dist_threshold)
+    objects = (position if same
+               else obstacles.expand(position.shape[:-2] + obstacles.shape))
+    with torch.no_grad():
+        return nearby_in_sight(position, objects, heading, k, sight_angle,
+                               same_objects=same)
 
 
 def relative_features(
@@ -295,51 +355,23 @@ def relative_features(
 
     state = torch.cat([position, velocity, acceleration], dim=-1)  # ..., N, 6
     n_real = state.shape[-2]
+    m_real = obstacles.shape[0]
     k_ped = min(cfg.topk_ped, n_real)
-    on_card = _on_card(position)
+    ped_route, obs_route = selection_routes(
+        n_real, m_real, position.ndim, batched, _on_card(position), cfg)
 
-    big_single_frame = (position.ndim == 2
-                        and n_real * _lane_padded(n_real) >= _GATE)
-    use_kernel = cfg.use_pallas_topk and big_single_frame and on_card
-    use_banded = (cfg.use_grid_topk and big_single_frame
-                  and (on_card or not cfg.use_pallas_topk))
-    use_banded_batched = (batched and cfg.use_grid_topk
-                          and position.ndim == 3
-                          and n_real * _lane_padded(n_real) >= _GATE
-                          and (on_card or not cfg.use_pallas_topk))
-
-    def _ped_dense():
-        if use_kernel:
-            if _lane_padded(n_real) > DENSE_COLUMN_CEILING:
-                return _banded_wide_fallback(position, heading, k_ped,
-                                             cfg.sight_angle_ped,
-                                             cfg.dist_threshold_ped)
-            return pairwise.topk_neighbors_pallas(
-                position, heading, k_ped, cfg.sight_angle_ped)
-        with torch.no_grad():
-            return nearby_in_sight(position, position, heading, k_ped,
-                                   cfg.sight_angle_ped, same_objects=True)
-
-    agent_order = None
-    if use_banded:
+    ped_kw = obs_kw = {}
+    if ped_route[0] == BANDED:
         g_p, w_p = banded.banded_params(n_real, n_real, k_ped, fine=True)
         ped_index = banded.build_object_index(position, g_p, w_p)
         inv = torch.empty_like(ped_index.order)
         inv[ped_index.order] = torch.arange(n_real, device=position.device)
         # one spatially coherent agent sort, shared with the obstacle pass
-        agent_order = (ped_index.order, inv)
-        ped_dist, ped_idx = banded.topk_neighbors_banded_or_dense(
-            position, heading, k_ped, cfg.sight_angle_ped, _ped_dense,
-            dist_threshold=cfg.dist_threshold_ped, grid_dim=g_p, window=w_p,
-            index=ped_index, agent_order=agent_order,
-        )
-    elif use_banded_batched:
-        g_p, w_p = banded.banded_params(n_real, n_real, k_ped, fine=True)
-        ped_dist, ped_idx = banded.topk_neighbors_banded_batched_or_dense(
-            position, heading, k_ped, cfg.sight_angle_ped, _ped_dense,
-            dist_threshold=cfg.dist_threshold_ped, grid_dim=g_p, window=w_p)
-    else:
-        ped_dist, ped_idx = _ped_dense()
+        obs_kw = dict(agent_order=(ped_index.order, inv))
+        ped_kw = dict(obs_kw, index=ped_index)
+    ped_dist, ped_idx = _select(ped_route, position, heading, k_ped,
+                                cfg.sight_angle_ped, cfg.dist_threshold_ped,
+                                **ped_kw)
     gathered = _gather_neighbor_rows(state, ped_idx)
     rel = gathered - state[..., :, None, :]
     keep = (ped_dist <= cfg.dist_threshold_ped)[..., None]
@@ -347,39 +379,15 @@ def relative_features(
 
     dest_features = _nan_to_zero(destination - position)
 
-    m_real = obstacles.shape[0]
     k_obs = min(cfg.topk_obs, m_real)
+    if obs_route[0] in (BANDED, BANDED_BATCHED):
+        g_o, w_o = _obstacle_params(n_real, m_real, k_obs)
+        # the obstacle table is static: one index, shared by the channels
+        obs_kw = dict(obs_kw, grid_dim=g_o, window=w_o, index=obstacle_index)
+    obs_dist, obs_idx = _select(obs_route, position, heading, k_obs,
+                                cfg.sight_angle_obs, cfg.dist_threshold_obs,
+                                obstacles, **obs_kw)
     obs = obstacles.expand(position.shape[:-2] + obstacles.shape)
-    big_obs = (position.shape[0] * _lane_padded(m_real) >= _GATE)
-
-    def _obs_dense():
-        if use_kernel and big_obs:
-            return pairwise.topk_neighbors_pallas(
-                position, heading, k_obs, cfg.sight_angle_obs,
-                objects=obstacles, same_objects=False)
-        with torch.no_grad():
-            return nearby_in_sight(position, obs, heading, k_obs,
-                                   cfg.sight_angle_obs)
-
-    if use_banded and big_obs:
-        g_o, w_o = _obstacle_params(n_real, m_real, k_obs)
-        o_index = (obstacle_index if obstacle_index is not None
-                   else banded.build_object_index(obstacles, g_o, w_o))
-        obs_dist, obs_idx = banded.topk_neighbors_banded_or_dense(
-            position, heading, k_obs, cfg.sight_angle_obs, _obs_dense,
-            objects=obstacles, same_objects=False,
-            dist_threshold=cfg.dist_threshold_obs, grid_dim=g_o, window=w_o,
-            index=o_index, agent_order=agent_order,
-        )
-    elif use_banded_batched and n_real * _lane_padded(m_real) >= _GATE:
-        g_o, w_o = _obstacle_params(n_real, m_real, k_obs)
-        # the obstacle table is shared by the channels: one index
-        obs_dist, obs_idx = banded.topk_neighbors_banded_batched_or_dense(
-            position, heading, k_obs, cfg.sight_angle_obs, _obs_dense,
-            objects=obstacles, dist_threshold=cfg.dist_threshold_obs,
-            grid_dim=g_o, window=w_o, index=obstacle_index)
-    else:
-        obs_dist, obs_idx = _obs_dense()
     obs_state = torch.cat([obs, torch.zeros_like(obs), torch.zeros_like(obs)],
                           dim=-1)
     gathered_o = _gather_neighbor_rows(obs_state, obs_idx)

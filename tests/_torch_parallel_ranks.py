@@ -145,8 +145,8 @@ def _rollouts(mesh, inp):
     out["ring"] = (_np(ring.position), _np(ring.mask_p),
                    banded.KERNEL.sharded_calls - calls)
     # the sharded K2 route, engaged below its N² gate
-    gate = rollout_mod._GATE
-    rollout_mod._GATE = 1
+    gate = rollout_mod.engine_uses_grid
+    rollout_mod.engine_uses_grid = lambda n, ncfg: ncfg.use_grid_topk
     try:
         calls = banded.KERNEL.sharded_calls
         fb = banded.KERNEL.fallbacks
@@ -155,7 +155,7 @@ def _rollouts(mesh, inp):
                          banded.KERNEL.sharded_calls - calls,
                          banded.KERNEL.fallbacks - fb)
     finally:
-        rollout_mod._GATE = gate
+        rollout_mod.engine_uses_grid = gate
     m = evaluate_rollouts(model, cfg, [data], test_flag=True, mesh=mesh)
     out["metrics"] = {k: getattr(m, k) for k in (
         "loss", "mse", "mae", "ot", "mmd", "collision", "hard_collision")}

@@ -254,6 +254,101 @@ def test_relative_features_batched_route_matches_jax(rng, monkeypatch):
     np.testing.assert_allclose(got[2].numpy(), np.asarray(ref[2]), atol=1e-5)
 
 
+def _flag_routes(n, m, shape0, rank, batched, on_card, cfg):
+    """The selection routes as the three flags, ``big_obs`` and the two
+    fallback closures of ``relative_features`` chose them before the route
+    table: each pass's selectors in call order."""
+    lane = lambda x: max(128, -(-x // 128) * 128)   # noqa: E731
+    gate = 2 ** 21
+    big_single_frame = rank == 2 and n * lane(n) >= gate
+    use_kernel = cfg.use_pallas_topk and big_single_frame and on_card
+    card = on_card or not cfg.use_pallas_topk
+    use_banded = cfg.use_grid_topk and big_single_frame and card
+    use_banded_batched = (batched and cfg.use_grid_topk and rank == 3
+                          and n * lane(n) >= gate and card)
+    big_obs = shape0 * lane(m) >= gate
+    ped_dense = ["dense"]
+    if use_kernel:
+        ped_dense = (["half_grid"] if lane(n) > tf.DENSE_COLUMN_CEILING
+                     else ["k1"])
+    obs_dense = ["k1"] if use_kernel and big_obs else ["dense"]
+    ped = (["k2"] + ped_dense if use_banded or use_banded_batched
+           else ped_dense)
+    obs = (["k2"] + obs_dense
+           if (use_banded and big_obs)
+           or (use_banded_batched and n * lane(m) >= gate)
+           else obs_dense)
+    return ped, obs
+
+
+@pytest.mark.parametrize("batched", [False, True])
+@pytest.mark.parametrize("m", [64, 4096])
+@pytest.mark.parametrize("n", [337, 1408, 1409, 1448, 1449, 12685])
+def test_selection_route_table_pins_the_flag_predicates(monkeypatch, n, m,
+                                                        batched):
+    """``selection_routes`` against the flags it replaced, with
+    ``_on_card``, ``use_grid_topk`` and ``use_pallas_topk`` each either
+    way: ``relative_features`` calls the routes the table names, the K2
+    routes' fallbacks included (the spies run them), and
+    ``prepare_obstacle_index`` builds an index exactly when the obstacle
+    pass calls K2.  The engine's N² gate and the feature pass's
+    lane-padded one disagree only at 1,409-1,448 agents."""
+    calls = []
+
+    def fake(position, k, objects):
+        k = min(k, objects.shape[-2])
+        return (torch.full(position.shape[:-1] + (k,), float("inf")),
+                torch.zeros(position.shape[:-1] + (k,), dtype=torch.int64))
+
+    def k2(position, heading, k, angle, dense_fn, objects=None, **kw):
+        calls.append(("k2", objects is not None))
+        assert (position.ndim == 3) == batched
+        return dense_fn()
+
+    def k1(position, heading, k, angle, objects=None, same_objects=True):
+        calls.append(("k1", objects is not None))
+        return fake(position, k, position if objects is None else objects)
+
+    def half_grid(position, heading, k, *args):
+        calls.append(("half_grid", False))
+        return fake(position, k, position)
+
+    def dense(position, objects, heading, k, angle, same_objects=False):
+        calls.append(("dense", not same_objects))
+        return fake(position, k, objects)
+
+    monkeypatch.setattr(tf.banded, "topk_neighbors_banded_or_dense", k2)
+    monkeypatch.setattr(tf.pairwise, "topk_neighbors_pallas", k1)
+    monkeypatch.setattr(tf, "_banded_wide_fallback", half_grid)
+    monkeypatch.setattr(tf, "nearby_in_sight", dense)
+    g = torch.Generator().manual_seed(n)
+    lead = (2,) if batched else ()
+    pos = torch.rand(lead + (n, 2), generator=g) * 200.0
+    vel = torch.randn(lead + (n, 2), generator=g)
+    obs = torch.rand((m, 2), generator=g) * 200.0
+    for on_card in (False, True):
+        monkeypatch.setattr(tf, "_on_card", lambda x: on_card)
+        for grid in (False, True):
+            for pallas in (False, True):
+                cfg = tf.NeighborConfig(use_grid_topk=grid,
+                                        use_pallas_topk=pallas)
+                case = (on_card, grid, pallas)
+                calls.clear()
+                index = tf.prepare_obstacle_index(n, obs, cfg)
+                tf.relative_features(pos, vel, torch.zeros_like(vel), pos,
+                                     obs, cfg, heading=vel,
+                                     obstacle_index=index, batched=batched)
+                ped = [c for c, is_obs in calls if not is_obs]
+                obs_calls = [c for c, is_obs in calls if is_obs]
+                assert (ped, obs_calls) == _flag_routes(
+                    n, m, pos.shape[0], pos.ndim, batched, on_card, cfg), case
+                assert (index is not None) == ("k2" in obs_calls), case
+                feature = tf.selection_routes(n, m, 3, True, True, cfg)[0]
+                split = (tf.engine_uses_grid(n, cfg)
+                         != (feature[0] == tf.BANDED_BATCHED))
+                assert split == (grid and 1409 <= n <= 1448), case
+
+
 @pytest.mark.parametrize("route", ["dense", "banded"])
 def test_relative_features_gradient_matches_jax(rng, route):
     """Gradients of a weighted sum of the features with respect to the

@@ -646,7 +646,7 @@ def test_k2_batched_or_dense_takes_one_decision_for_the_batch(
     for exact, falls_back in (([True, False], True), ([True, True], False)):
         flags["exact"] = exact
         before = banded.KERNEL.fallbacks
-        d, _ = banded.topk_neighbors_banded_batched_or_dense(
+        d, _ = banded.topk_neighbors_banded_or_dense(
             _t(pos), _t(h), 6, 90.0, lambda: sentinel)
         assert (d is sentinel[0]) == falls_back
         assert banded.KERNEL.fallbacks == before + int(falls_back)

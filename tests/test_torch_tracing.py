@@ -274,12 +274,10 @@ def test_k2_blocking_reads_are_spans(batched):
     pos = torch.rand(shape, generator=g) * 40
     head = torch.nn.functional.normalize(torch.randn(shape, generator=g),
                                          dim=-1)
-    dense = (lambda: None)
-    call = (banded.topk_neighbors_banded_batched_or_dense if batched
-            else banded.topk_neighbors_banded_or_dense)
     with profiled():
         for _ in range(3):
-            call(pos, head, 6, 90.0, dense)
+            banded.topk_neighbors_banded_or_dense(pos, head, 6, 90.0,
+                                                  lambda: None)
     s = profiling.summary()
     assert s["sync.k2_exact"]["count"] == 3
     # the agents' cell index, built again each call for each channel
