@@ -76,7 +76,14 @@ Phases, one line each; any failure raises and exits non-zero:
     gives the best validation loss again;
 12. OT and MMD at dense N (``bench.py:617`` ``bench_dense_metrics``:
     5 frames of 12,685 agents uniform over 200 m, ``q = p + N(0, 0.5²)``):
-    every frame's banded Sinkhorn exact and equal to the streaming kernel
+    a. the banded Sinkhorn's kernel (``csrc/sinkhorn_banded.cu``) against
+       its plain route on the card (``sinkhorn_kernel_check``): each
+       frame's cost within 1e-5, ``exact`` and the iteration count equal,
+       two calls bitwise equal, the far cloud's fallback bitwise the
+       streaming value and counted; a frame's peak memory under one
+       ``(tiles, 128, window)`` tensor; the kernels' device time a
+       half-update and a frame beside their bound, ms/frame of both routes;
+    b. every frame's banded Sinkhorn exact and equal to the streaming kernel
     (rel 1e-4); a far cloud (300 m away) fails the proof and falls back to
     the streaming value bit for bit; streaming MMD equal to dense MMD on
     4,096 agents, against q and against the far cloud (rel 1e-4 /
@@ -182,12 +189,15 @@ and per pass: ms, plain ms, ``bound_ms``, ``bound_by``, ``share`` of the
 bound, ``library_ms`` null: no single PyTorch call computes a
 field-of-view top-k), and the last line is
 ``{"ok": true, "device": {...}}``.  Launch counts are zeroed just
-before each main path (phases 4-5, phase 9, phases 15c and 15d, phase
-17, and on every rank phase 18b) and read just after it: they count only
-the main paths' launches.  Phases 12-13 run no kernel of the port, and
-phase 14 none but the force law's (every MLAPM frame, counted over the
-phase and required): dense-N OT and MMD are torch ops, and the CLI
-pipeline's and the discovery loop's GC scenes (at most ~340 agents,
+before each main path (phases 4-5, phase 9, 12b's ``ot_with_time_mask``,
+phases 15c and 15d, phase 17, and on every rank phase 18b) and read just
+after it: they count only the main paths' launches.  Phase 12 runs the
+banded Sinkhorn's kernel (every live dense-N OT frame; 12b requires
+2·iterations + 1 slice launches a live frame, iterations rounded up to
+whole runs of ``_STOP_CHECK``, and no fallback), phase 13 no
+kernel of the port, and phase 14 none but the force law's (every MLAPM
+frame, counted over the phase and required): dense-N MMD is torch ops, and
+the CLI pipeline's and the discovery loop's GC scenes (at most ~340 agents,
 4,094 obstacle points) stay below the 2^21 pair gate that routes the
 feature pass to K1 / K2; phase 14 reads both counts after its run to
 show it; phase 16's runs
@@ -227,6 +237,8 @@ FT_WINDOWS = (25, 125)      # Trainer.finetune: training windows' first
 FT_VALID_FRAMES = (600, 700)  # frames, and the held-out validation frames
 OT_FRAMES = 5               # OT / MMD at dense N (bench.py:617)
 OT_MMD_SUBSET = 4096        # agents of the streaming-vs-dense MMD check
+SINKHORN_REPS = 5           # timed frames of the banded Sinkhorn's kernel
+SINKHORN_REL_GAP = 1e-5     # kernel vs plain route, float32 sum order
 # the CLI pipeline: frame ranges of the committed scenes per split, and
 # the paper's hyper-parameters (tools/run_gc_experiment.py:37-59)
 CLI_SPLITS = {"train": (0, 300), "valid": (300, 450), "test": (450, 600)}
@@ -339,7 +351,8 @@ def queued_ms(fn, reps):
 def plain_route():
     """Route the kernel wrappers to their plain versions on the card (for
     the comparisons only: the wrappers themselves never fall back)."""
-    from piml_tpu_torch.ops import banded, contacts, pairwise
+    from piml_tpu_torch.metrics import ot_banded
+    from piml_tpu_torch.ops import banded, contacts, pairwise, sinkhorn
 
     def banded_plain(*args):   # the plain version takes no cell offsets
         return banded.banded_topk_plain(*args[:-1])
@@ -352,7 +365,9 @@ def plain_route():
                            pairwise.pairwise_topk_plain), \
             mock.patch.object(banded, "banded_topk_cuda", banded_plain), \
             mock.patch.object(contacts, "contact_counts_cuda",
-                              contacts_plain):
+                              contacts_plain), \
+            mock.patch.object(sinkhorn, "banded_iterations_cuda",
+                              ot_banded.banded_iterations_plain):
         yield
 
 
@@ -384,6 +399,12 @@ F32_OPS_PER_S = 67e12 / 2
 # row's k-th distance (the sqrt and field-of-view gate follow only for
 # pairs that can rank)
 OPS_PER_PAIR = 6
+# the banded Sinkhorn's window term: one expf (the SFU's 16 a clock an SM)
+# and some ten other f32 operations (dx, dy, their squares and sum, the
+# scale by 1/ε, the potential, the running max's compare, the shift and the
+# sum), each an instruction under --fmad=false
+EXP_PER_S = 132 * 16 * 1.98e9
+OPS_PER_TERM = 10
 
 
 def kernel_bound(nbytes, pairs):
@@ -1033,10 +1054,189 @@ def stress_rollout(model, sc, ncfg, frames, mesh=None):
     return outs, time.perf_counter() - t0
 
 
+def sinkhorn_terms(x, y, window):
+    """The window terms a half-update of each side of a banded Sinkhorn
+    frame needs on these inputs (``ops/sinkhorn.py`` ``BandedSide``): for
+    each tile, its valid rows × its window's valid columns."""
+    import torch
+
+    def side(q, t):
+        lanes = (q.start[:, None] * 128
+                 + torch.arange(window, device=q.pos.device))
+        cols = ((lanes < q.win_end[:, None])
+                & (t.valid[lanes.clamp_max(t.rows - 1)] > 0.5)).sum(dim=1)
+        rows = (q.valid.reshape(-1, 128) > 0.5).sum(dim=1)
+        return int((cols * rows).sum())
+
+    return side(x, y), side(y, x)
+
+
+def sinkhorn_kernel_check(dev):
+    """Phase 12a: the banded Sinkhorn's kernel (``csrc/sinkhorn_banded.cu``)
+    against its plain route on the card, on phase 12's frames (``ot_frames``:
+    12,685 agents over 200 m, ``q = p + N(0, 0.5²)``), the first with 20 %
+    of the agents absent, with a second cloud of two thirds the agents, and
+    with half the first cloud packed into 4 m: ``exact`` and the iteration
+    count equal, each exact frame's cost within ``SINKHORN_REL_GAP`` of the
+    plain route's (the uniform frames must be exact); two calls bitwise
+    equal; the far cloud's proof
+    fails on both routes and the fallback returns the streaming value bit
+    for bit, counted once in ``KERNEL.fallbacks``; one frame's peak memory
+    above its start under one ``(tiles, 128, window)`` f32 tensor.  Times:
+    a frame of each route (``cuda_ms``: median of single timed calls, host
+    dispatch and the stop reads included) and the kernels' device time a
+    half-update and a frame (``torch.profiler``) beside the bound of the
+    frame's window terms."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from piml_tpu_torch.metrics import (ot_banded, sinkhorn_banded,
+                                        sinkhorn_banded_or_dense,
+                                        sinkhorn_masked_chunked)
+    from piml_tpu_torch.ops import sinkhorn
+
+    p, q, far, ones = ot_frames(dev)
+    g = torch.Generator().manual_seed(SEED + 3)
+    masked = (torch.rand(p.shape[1], generator=g) > 0.2).float().to(dev)
+    clustered = p[0].clone()
+    clustered[:p.shape[1] // 2] *= 0.02
+    m = p.shape[1] * 2 // 3
+    cases = [(f"frame {t}", (p[t], q[t], ones[t], ones[t]), True)
+             for t in range(OT_FRAMES)]
+    cases += [("20 % absent", (p[0], q[0], masked, masked), True),
+              ("uneven", (p[0], q[0, :m].contiguous(), ones[0], ones[0, :m]),
+               None),
+              ("clustered", (clustered, q[0], ones[0], ones[0]), None)]
+    launches = sinkhorn.KERNEL.launches
+    frames = []
+    for name, args, must_be_exact in cases:
+        got = sinkhorn_banded(*args, with_iterations=True)
+        with plain_route():
+            ref = sinkhorn_banded(*args, with_iterations=True)
+        c, r = float(got[0]), float(ref[0])
+        rec = dict(case=name, cost=c, plain_cost=r,
+                   rel_gap=abs(c - r) / max(abs(r), 1e-30),
+                   exact=bool(got[1]), plain_exact=bool(ref[1]),
+                   iterations=int(got[2]), plain_iterations=int(ref[2]))
+        frames.append(rec)
+        if (rec["exact"], rec["iterations"]) != (rec["plain_exact"],
+                                                 rec["plain_iterations"]):
+            raise AssertionError(f"banded Sinkhorn, {name}: kernel and "
+                                 f"plain routes differ: {rec}")
+        if must_be_exact and not rec["exact"]:
+            raise AssertionError(f"banded Sinkhorn, {name}: not exact")
+        if rec["exact"] and rec["rel_gap"] > SINKHORN_REL_GAP:
+            raise AssertionError(f"banded Sinkhorn, {name}: {rec}")
+    if sinkhorn.KERNEL.launches == launches:
+        raise AssertionError("banded Sinkhorn: the kernel never launched")
+    first = sinkhorn_banded(p[0], q[0], ones[0], ones[0],
+                            with_iterations=True)
+    again = sinkhorn_banded(p[0], q[0], ones[0], ones[0],
+                            with_iterations=True)
+    for a, b, what in zip(first, again, ("cost", "exact", "iterations")):
+        assert_equal(a, b, f"banded Sinkhorn, two calls: {what}")
+
+    fa = (p[0], far[0], ones[0], ones[0])
+    far_exact = bool(sinkhorn_banded(*fa)[1])
+    with plain_route():
+        far_plain = bool(sinkhorn_banded(*fa)[1])
+    if far_exact or far_plain:
+        raise AssertionError(f"far-cloud OT: the banded proof held "
+                             f"(kernel {far_exact}, plain {far_plain})")
+    fallbacks = sinkhorn.KERNEL.fallbacks
+    assert_equal(sinkhorn_banded_or_dense(*fa),
+                 sinkhorn_masked_chunked(*fa),
+                 "far-cloud OT fallback (kernel route) vs streaming")
+    if sinkhorn.KERNEL.fallbacks != fallbacks + 1:
+        raise AssertionError("far-cloud OT: the fallback was not counted")
+
+    captured = {}
+    real = ot_banded.banded_iterations_plain
+
+    def capture(x, y, window, *rest):
+        captured.update(x=x, y=y, window=window)
+        return real(x, y, window, *rest)
+
+    with mock.patch.object(sinkhorn, "banded_iterations_cuda", capture), \
+            mock.patch.object(ot_banded, "banded_iterations_plain", capture):
+        sinkhorn_banded(p[0], q[0], ones[0], ones[0])
+    x, y, window = captured["x"], captured["y"], captured["window"]
+    pair_bytes = x.rows * window * 4
+
+    def frame():
+        return sinkhorn_banded(p[0], q[0], ones[0], ones[0],
+                               with_iterations=True)
+
+    def peak_above_start():
+        torch.cuda.synchronize(dev)
+        base = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        frame()
+        torch.cuda.synchronize(dev)
+        return torch.cuda.max_memory_allocated(dev) - base
+
+    kernel_peak = peak_above_start()
+    with plain_route():
+        plain_peak = peak_above_start()
+    if kernel_peak >= pair_bytes:
+        raise AssertionError(f"banded Sinkhorn: a kernel frame peaks "
+                             f"{kernel_peak} B above its start, one pair "
+                             f"tensor is {pair_bytes} B")
+
+    ms = cuda_ms(frame, SINKHORN_REPS)
+    with plain_route():
+        plain_ms = cuda_ms(frame, 2)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        its = int(frame()[2])
+        torch.cuda.synchronize(dev)
+    dev_ms, counts = {}, {}
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA or "sinkhorn_" not in e.name:
+            continue
+        cost_pass = "<true>" in e.name or "ILb1E" in e.name
+        kind = next(k for k in ("slice", "finish", "cost") if k in e.name)
+        kind = "cost_" + kind if cost_pass else kind
+        tr = e.time_range
+        dev_ms[kind] = dev_ms.get(kind, 0.0) + (tr.end - tr.start) * 1e-3
+        counts[kind] = counts.get(kind, 0) + 1
+    terms_x, terms_y = sinkhorn_terms(x, y, window)
+    terms = its * (terms_x + terms_y) + terms_x
+    t_exp = terms / EXP_PER_S
+    t_ops = OPS_PER_TERM * terms / F32_OPS_PER_S
+    bound_ms = max(t_exp, t_ops) * 1e3
+    kernel_ms = sum(dev_ms.values())
+    half_ms = (dev_ms.get("slice", 0.0) + dev_ms.get("finish", 0.0)) / max(
+        counts.get("slice", 0), 1)
+    rec = dict(frames=frames,
+               max_rel_gap=max(f["rel_gap"] for f in frames
+                               if f["exact"]),
+               far_cloud_exact=[far_exact, far_plain],
+               far_cloud_fallback_bitwise=True,
+               rows=[x.rows, y.rows], window=window,
+               slices=sinkhorn.column_slices(window),
+               iterations=its, window_terms_half=[terms_x, terms_y],
+               window_terms_frame=terms, ms=ms, plain_ms=plain_ms,
+               kernel_ms_frame=kernel_ms, kernel_ms_half_update=half_ms,
+               kernel_ms_by_kind=dev_ms, launches_by_kind=counts,
+               bound_ms=bound_ms,
+               bound_by="exp" if t_exp >= t_ops else "operations",
+               share=bound_ms / kernel_ms if kernel_ms else None,
+               peak_above_start_bytes=kernel_peak,
+               plain_peak_above_start_bytes=plain_peak,
+               pair_tensor_bytes=pair_bytes)
+    say("sinkhorn_kernel", **rec)
+    return rec
+
+
 def dense_metrics(dev, n_agents):
     """Phase 12: OT and MMD at dense N (``bench.py:617``
     ``bench_dense_metrics``): ``OT_FRAMES`` frames of ``n_agents`` agents
-    uniform over 200 m × 200 m, ``q = p + N(0, 0.5²)``, full masks."""
+    uniform over 200 m × 200 m, ``q = p + N(0, 0.5²)``, full masks.  One
+    call of the main entry ``ot_with_time_mask`` is counted: the banded
+    Sinkhorn's slice launches must be those of its live frames' iterations
+    and no frame may fall back."""
     import torch
 
     from piml_tpu_torch.metrics import (mmd_masked, mmd_masked_chunked,
@@ -1044,6 +1244,8 @@ def dense_metrics(dev, n_agents):
                                         sinkhorn_banded,
                                         sinkhorn_banded_or_dense,
                                         sinkhorn_masked_chunked)
+    from piml_tpu_torch.metrics.metrics import _STOP_CHECK
+    from piml_tpu_torch.ops import sinkhorn
 
     g = torch.Generator().manual_seed(SEED + 2)
     p = torch.rand((OT_FRAMES, n_agents, 2), generator=g) * 200.0
@@ -1084,9 +1286,24 @@ def dense_metrics(dev, n_agents):
             raise AssertionError(f"MMD subset ({name}): streaming "
                                  f"{m_stream} vs dense {m_dense}")
         mmd_pairs[name] = [m_stream, m_dense]
+    # the main entry's launches of the kernel: each live frame launches the
+    # slice kernel twice an iteration, in runs of _STOP_CHECK iterations
+    # (a run the card's gate froze still launches), and once for the cost
+    sinkhorn.KERNEL.launches = sinkhorn.KERNEL.fallbacks = 0
+    ot_with_time_mask(p, q, ones, "sum")
+    torch.cuda.synchronize(dev)
+    ot_launches, ot_fallbacks = (sinkhorn.KERNEL.launches,
+                                 sinkhorn.KERNEL.fallbacks)
+    want = sum(2 * min(100, -(-its // _STOP_CHECK) * _STOP_CHECK) + 1
+               for its in iterations)                 # max_iter 100
+    if (ot_launches, ot_fallbacks) != (want, 0):
+        raise AssertionError(f"ot_with_time_mask: {ot_launches} slice "
+                             f"launches and {ot_fallbacks} fallbacks, "
+                             f"{want} and 0 expected")
     ot_ms = cuda_ms(lambda: ot_with_time_mask(p, q, ones, "sum"), 1)
     mmd_ms = cuda_ms(lambda: mmd_with_time_mask(p, q, ones, "sum"), 3)
     rec = dict(frames=OT_FRAMES, agents=n_agents,
+               ot_launches=ot_launches, ot_fallbacks=ot_fallbacks,
                ot_ms_per_frame=ot_ms / OT_FRAMES,
                mmd_ms_per_frame=mmd_ms / OT_FRAMES,
                sinkhorn_iterations=iterations, banded_vs_streaming=costs,
@@ -3187,7 +3404,8 @@ def main():
                              f"{again}, best was {state.best_val}")
 
     # ---- 12. OT and MMD at dense N ------------------------------------------
-    dense_metrics(dev, N_AGENTS)
+    sinkhorn_pass = sinkhorn_kernel_check(dev)
+    dense = dense_metrics(dev, N_AGENTS)
 
     # ---- 13. the CLI pipeline -------------------------------------------------
     with tempfile.TemporaryDirectory() as tmp:
@@ -3262,6 +3480,13 @@ def main():
                       "piml_tpu/models/mlapm.py mlapm_force",
              launches_generate_gc=gen_launches, library_ms=None,
              passes=mlapm_passes),
+        dict(name="sinkhorn_banded", route="cuda",
+             source="piml_tpu_torch/csrc/sinkhorn_banded.cu",
+             replaces="none: XLA over the banded tensors in "
+                      "piml_tpu/metrics/ot_banded.py sinkhorn_banded",
+             launches_eval_ot=dense["ot_launches"],
+             fallbacks_eval_ot=dense["ot_fallbacks"], library_ms=None,
+             **sinkhorn_pass),
         dict(name="banded_topk (K2), agent-sharded caller", route="cuda",
              source="piml_tpu_torch/csrc/banded_topk.cu",
              replaces="piml_tpu/parallel/agent_shard.py:286",

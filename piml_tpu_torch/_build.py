@@ -39,6 +39,7 @@ LIB_NAME = "libpiml_topk.so"
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_LL = ctypes.c_longlong
 _F = ctypes.c_float
 _FP = ctypes.POINTER(ctypes.c_float)
 _SIGNATURES = {
@@ -57,6 +58,13 @@ _SIGNATURES = {
     # coll, rot, partial, out, stream
     "piml_mlapm_force": (_P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _F, _F, _F,
                          _FP, _P, _P, _P),
+    # sides, iterations, window, slices, eps, inv_eps, log_tol, thresh,
+    # state_f, state_i, part, part_len, blk, blk_len, stream
+    "piml_sinkhorn_iterations": (_P, _I, _I, _I, _F, _F, _F, _F, _P, _P, _P,
+                                 _LL, _P, _I, _P),
+    # sides, window, slices, eps, inv_eps, state_f, state_i, part,
+    # part_len, blk, blk_len, stream
+    "piml_sinkhorn_cost": (_P, _I, _I, _F, _F, _P, _P, _P, _LL, _P, _I, _P),
 }
 
 
@@ -65,7 +73,8 @@ class KernelCount:
     """Launch bookkeeping of one kernel wrapper: ``launches`` grows by one
     where the wrapper launches its kernel and nowhere else; ``fallbacks``
     counts frames whose banded result was not provably exact and were
-    recomputed by the dense path (banded selector only); ``wide_calls``
+    recomputed by the dense path (the banded selector, and the banded
+    Sinkhorn's frames that the streaming kernel recomputes); ``wide_calls``
     counts the half-grid banded passes that replace that dense path past
     its column ceiling, and ``wide_relaxed`` those of them whose result was
     used without an exactness proof (``physics/features.py``

@@ -19,6 +19,7 @@ from typing import Optional
 import torch
 
 from piml_tpu_torch.physics import collision_detection
+from piml_tpu_torch.utils.profiling import annotate
 
 # host reads of the "every frame converged" flag, one per this many
 # Sinkhorn iterations
@@ -202,7 +203,8 @@ def ot_with_time_mask(p: torch.Tensor, q: torch.Tensor, mask: torch.Tensor,
     caller's to fold in.  Up to ``dense_limit`` agents the frames run
     batched, in chunks that bound each (chunk, N, N) temporary; above it
     each frame runs the banded Sinkhorn with its exactness proof and falls
-    back to the streaming kernel (``ot_banded.py``)."""
+    back to the streaming kernel (``ot_banded.py``), each live frame in a
+    device span ``scores.ot``."""
     m = (mask == 1).to(p.dtype)
     active = _active_frames(mask)
     n = p.shape[-2]
@@ -211,9 +213,14 @@ def ot_with_time_mask(p: torch.Tensor, q: torch.Tensor, mask: torch.Tensor,
 
         # frames that count 0 anyway are skipped: one host read
         live = active.tolist()
-        per_frame = torch.stack([
-            sinkhorn_banded_or_dense(p[t], q[t], m[t], m[t]) if live[t]
-            else torch.zeros((), device=p.device) for t in range(p.shape[0])])
+        costs = []
+        for t in range(p.shape[0]):
+            if not live[t]:
+                costs.append(torch.zeros((), device=p.device))
+                continue
+            with annotate("scores.ot", device=True):
+                costs.append(sinkhorn_banded_or_dense(p[t], q[t], m[t], m[t]))
+        per_frame = torch.stack(costs)
     else:
         step = _frame_chunk(n * n)
         per_frame = torch.cat([

@@ -13,8 +13,12 @@ truncated), :func:`sinkhorn_banded_or_dense` takes the streaming dense
 kernel instead.
 
 The proof is a device tensor ANDed over the iterations and read on the
-host once per frame, where the JAX package's ``lax.cond`` reads it.  This
-is torch ops, not a hand-written kernel.
+host once per frame, where the JAX package's ``lax.cond`` reads it.  The
+grid, the sort, the windows and the bounds are torch ops, taken once a
+frame; the iteration is :func:`banded_iterations_plain` (torch ops over the
+windows' pair tensors) for CPU tensors and ``ops/sinkhorn.py``
+``banded_iterations_cuda`` (a hand-written kernel, no pair tensor) for
+CUDA tensors.
 """
 
 from __future__ import annotations
@@ -26,8 +30,9 @@ import torch
 
 from piml_tpu_torch.metrics.metrics import (_STOP_CHECK, NEG_BIG, _finite,
                                             sinkhorn_masked_chunked)
+from piml_tpu_torch.ops import sinkhorn
+from piml_tpu_torch.ops.sinkhorn import LANE, BandedSide
 
-LANE = 128
 # excluded-mass tolerance: per-row neglected weight ≤ e^LOG_TOL of the
 # row's included logsumexp
 LOG_TOL = math.log(1e-12)
@@ -85,7 +90,7 @@ def _sorted_cloud(pts, valid, lo, cs, g: int, n_pad: int):
                          torch.cumsum(counts, 0)])
     idx = torch.cat([order, order[-1:].expand(n_pad - n)])
     comp = torch.cat([p0, valid[:, None].to(p0.dtype)], dim=1)[idx]
-    pos_s = comp[:, :2]
+    pos_s = comp[:, :2].contiguous()
     valid_s = comp[:, 2] * (torch.arange(n_pad, device=dev) < n)
     cellx_s = torch.clamp(torch.floor((pos_s[:, 0] - lo[0]) / cs[0]),
                           0, g - 1).long()
@@ -93,19 +98,13 @@ def _sorted_cloud(pts, valid, lo, cs, g: int, n_pad: int):
     return order, offsets, pos_s, valid_s, cellx_s
 
 
-def _side_structure(qpos, qvalid, qcellx, t_offsets, tpos_s, tvalid_s,
-                    lo, cs, g: int, window: int, inv_eps: float):
-    """Per-tile windows of one side's queries against the other's table.
+def _side_windows(qpos, qcellx, t_offsets, lo, cs, g: int, window: int):
+    """Per-tile windows of one side's queries into the other's sorted table.
 
-    Returns (A (T, 128, W) = -d²/ε, tvalid_win (T, W), block ids
-    (T, W/LANE), bound² (n_pad,): the distance² every window-excluded
-    point provably exceeds (inf when nothing is excluded), tiles_ok ())."""
-    dev = qpos.device
-    n_pad = qpos.shape[0]
-    num_tiles = n_pad // LANE
-    w_blocks = window // LANE
-    m_pad = tpos_s.shape[0]
-
+    Returns (start lanes (T,), window ends (T,): the end of each window's
+    true span, bound² (n_pad,): the distance² every window-excluded point
+    provably exceeds (inf when nothing is excluded), tiles_ok ())."""
+    num_tiles = qpos.shape[0] // LANE
     cx_t = qcellx.reshape(num_tiles, LANE)
     cx0 = torch.clamp(cx_t.amin(dim=1) - 2, 0, g - 1)
     cx1 = torch.clamp(cx_t.amax(dim=1) + 2, 0, g - 1)
@@ -113,35 +112,127 @@ def _side_structure(qpos, qvalid, qcellx, t_offsets, tpos_s, tvalid_s,
     win_end = t_offsets[(cx1 + 1) * g]
     tiles_ok = ((win_end - start_lanes * LANE) <= window).all()
 
-    bids = (start_lanes[:, None]
-            + torch.arange(w_blocks, device=dev)[None, :])
-    bids = torch.clamp_max(bids, m_pad // LANE - 1)           # (T, w_blocks)
-    tx = tpos_s[:, 0].reshape(-1, LANE)[bids]
-    ty = tpos_s[:, 1].reshape(-1, LANE)[bids]
-    tv = tvalid_s.reshape(-1, LANE)[bids]
-    # windows may overrun the padded table's tail (clamped block ids repeat
-    # the last block): drop duplicates beyond the true window end
-    flat_pos = (bids[..., None] * LANE
-                + torch.arange(LANE, device=dev)).reshape(num_tiles, window)
-    in_win = flat_pos < win_end[:, None]
-    seq = start_lanes[:, None] * LANE + torch.arange(window, device=dev)
-    in_win &= flat_pos == seq                                  # monotone span
-    tx = tx.reshape(num_tiles, window)
-    ty = ty.reshape(num_tiles, window)
-    tvalid_win = torch.where(in_win, tv.reshape(num_tiles, window), 0.0)
-
-    qx = qpos[:, 0].reshape(num_tiles, LANE, 1)
-    qy = qpos[:, 1].reshape(num_tiles, LANE, 1)
-    d2 = (tx[:, None, :] - qx) ** 2 + (ty[:, None, :] - qy) ** 2
-    A = -d2 * inv_eps                                         # (T, 128, W)
-
     # distance any point outside the ±2 x-cell-row band exceeds
     bx_lo = lo[0] + (qcellx - 2).to(qpos.dtype) * cs[0]
     bx_hi = lo[0] + (qcellx + 3).to(qpos.dtype) * cs[0]
     d_left = torch.where(qcellx - 2 > 0, qpos[:, 0] - bx_lo, math.inf)
     d_right = torch.where(qcellx + 2 < g - 1, bx_hi - qpos[:, 0], math.inf)
     bound = torch.clamp_min(torch.minimum(d_left, d_right), 0.0)
-    return A, tvalid_win, bids, bound ** 2, tiles_ok
+    return start_lanes, win_end, bound ** 2, tiles_ok
+
+
+def _side(pos, valid, log_marg, bound2, other_valid, start_lanes, win_end):
+    """One side's rows as the iteration reads them (``BandedSide``)."""
+    fin = torch.isfinite(bound2)
+    trivially_ok = (valid < 0.5) | ~fin | ~(other_valid > 0.5).any()
+    consts = torch.stack([log_marg, -bound2,
+                          torch.log1p(torch.where(fin, bound2, 0.0)),
+                          trivially_ok.to(pos.dtype)], dim=1)
+    return BandedSide(pos, valid, consts, start_lanes, win_end)
+
+
+def _window_terms(q: BandedSide, t: BandedSide, window: int, inv_eps: float):
+    """The plain iteration's window tensors of side ``q``'s tiles in side
+    ``t``'s table: (A (T, 128, W) = -d²/ε, tvalid_win (T, W), block ids
+    (T, W/LANE))."""
+    dev = q.pos.device
+    num_tiles = q.rows // LANE
+    w_blocks = window // LANE
+    m_pad = t.rows
+    bids = (q.start[:, None]
+            + torch.arange(w_blocks, device=dev)[None, :])
+    bids = torch.clamp_max(bids, m_pad // LANE - 1)           # (T, w_blocks)
+    tx = t.pos[:, 0].reshape(-1, LANE)[bids]
+    ty = t.pos[:, 1].reshape(-1, LANE)[bids]
+    tv = t.valid.reshape(-1, LANE)[bids]
+    # windows may overrun the padded table's tail (clamped block ids repeat
+    # the last block): drop duplicates beyond the true window end
+    flat_pos = (bids[..., None] * LANE
+                + torch.arange(LANE, device=dev)).reshape(num_tiles, window)
+    in_win = flat_pos < q.win_end[:, None]
+    seq = q.start[:, None] * LANE + torch.arange(window, device=dev)
+    in_win &= flat_pos == seq                                  # monotone span
+    tx = tx.reshape(num_tiles, window)
+    ty = ty.reshape(num_tiles, window)
+    tvalid_win = torch.where(in_win, tv.reshape(num_tiles, window), 0.0)
+
+    qx = q.pos[:, 0].reshape(num_tiles, LANE, 1)
+    qy = q.pos[:, 1].reshape(num_tiles, LANE, 1)
+    d2 = (tx[:, None, :] - qx) ** 2 + (ty[:, None, :] - qy) ** 2
+    A = -d2 * inv_eps                                         # (T, 128, W)
+    return A, tvalid_win, bids
+
+
+def banded_iterations_plain(x: BandedSide, y: BandedSide, window: int,
+                            eps: float, max_iter: int, thresh: float,
+                            log_m_terms: torch.Tensor, exact: torch.Tensor,
+                            log_tol: float, stop_check: int
+                            ) -> Tuple[torch.Tensor, ...]:
+    """Plain version of ``ops/sinkhorn.py`` ``banded_iterations_cuda``: the
+    reference's iteration from zero potentials on the windows' pair
+    tensors, then the transport cost.  Returns ``(cost, exact,
+    iterations)``."""
+    dev = x.pos.device
+    inv_eps = 1.0 / eps
+    A_x, yv_win, ybids = _window_terms(x, y, window, inv_eps)
+    A_y, xv_win, xbids = _window_terms(y, x, window, inv_eps)
+    xval, yval = x.valid, y.valid
+
+    Tq = x.rows // LANE
+    # loop-invariant parts of the half-updates
+    pv_x = (yv_win[:, None, :] > 0.5) & (xval.reshape(-1, LANE)[:, :, None]
+                                         > 0.5)
+    pv_y = (xv_win[:, None, :] > 0.5) & (yval.reshape(-1, LANE)[:, :, None]
+                                         > 0.5)
+
+    def half_update(A, pv, bids, other_pot, other_valid, q):
+        """One reference half-update on a banded side: the new potential
+        (flat, sorted order) and this pass's exactness proof."""
+        log_marg, neg_bound2, log1p_b2 = (q.consts[:, 0], q.consts[:, 1],
+                                          q.consts[:, 2])
+        trivially_ok = q.consts[:, 3] > 0.5
+        pot_win = other_pot.reshape(-1, LANE)[bids].reshape(A.shape[0], -1)
+        M = torch.where(pv, A + pot_win[:, None, :] * inv_eps, NEG_BIG)
+        ls = torch.logsumexp(M, dim=-1).reshape(-1)              # (n_pad,)
+        new = eps * (log_marg - ls)
+        new = torch.where(q.valid > 0.5, new, 0.0)
+        # proof: every window-excluded term ≤ e^log_tol of the row lse; the
+        # log1p(bound²) term extends it to the cost-weighted tail of the
+        # final value pass (C·e^{-C/ε} decreases beyond C = ε ≤ bound²)
+        wmax = torch.where(other_valid > 0.5, other_pot, -math.inf).max()
+        margin = ((neg_bound2 + wmax) * inv_eps + log_m_terms + log1p_b2
+                  - ls)
+        row_ok = trivially_ok | (margin <= log_tol)
+        return new, row_ok.all()
+
+    u = torch.zeros(x.rows, device=dev)
+    v = torch.zeros(y.rows, device=dev)
+    err = torch.full((), math.inf, device=dev)
+    iterations = torch.zeros((), dtype=torch.long, device=dev)
+    for it in range(max_iter):
+        active = err >= thresh
+        if it % stop_check == 0 and not bool(active):
+            break
+        iterations = iterations + active
+        u1 = u
+        un, ok_u = half_update(A_x, pv_x, ybids, v, yval, x)
+        vn, ok_v = half_update(A_y, pv_y, xbids, un, xval, y)
+        errn = ((un - u1) * xval).abs().sum()
+        u = torch.where(active, un, u)
+        v = torch.where(active, vn, v)
+        err = torch.where(active, errn, err)
+        exact = exact & (ok_u & ok_v | ~active)
+
+    # transport cost on the included pairs (the excluded mass is covered by
+    # the per-iteration proof)
+    v_win = v.reshape(-1, LANE)[ybids].reshape(Tq, -1)
+    M = torch.where(pv_x,
+                    A_x + (u.reshape(Tq, LANE)[:, :, None]
+                           + v_win[:, None, :]) * inv_eps,
+                    NEG_BIG)
+    C = -A_x * eps
+    cost = torch.where(pv_x, torch.exp(M) * C, 0.0).sum()
+    return cost, exact, iterations
 
 
 def sinkhorn_banded(x: torch.Tensor, y: torch.Tensor, mask_x: torch.Tensor,
@@ -159,7 +250,6 @@ def sinkhorn_banded(x: torch.Tensor, y: torch.Tensor, mask_x: torch.Tensor,
     n, m = x.shape[0], y.shape[0]
     dev = x.device
     g, w = ot_banded_params(n, m, grid_dim, window)
-    inv_eps = 1.0 / eps
 
     x, y = _finite(x), _finite(y)
     valid_x = mask_x > 0.5
@@ -190,77 +280,18 @@ def sinkhorn_banded(x: torch.Tensor, y: torch.Tensor, mask_x: torch.Tensor,
                          sorted_log_marginal(mask_y, ny, yord, m_pad - m),
                          log_floor)
 
-    A_x, yv_win, ybids, xbound2, ok_x = _side_structure(
-        xpos, xval, xcellx, yoff, ypos, yval, lo, cs, g, w, inv_eps)
-    A_y, xv_win, xbids, ybound2, ok_y = _side_structure(
-        ypos, yval, ycellx, xoff, xpos, xval, lo, cs, g, w, inv_eps)
-    exact = ok_x & ok_y
-
-    Tq = n_pad // LANE
+    xstart, xend, xbound2, ok_x = _side_windows(xpos, xcellx, yoff, lo, cs,
+                                                g, w)
+    ystart, yend, ybound2, ok_y = _side_windows(ypos, ycellx, xoff, lo, cs,
+                                                g, w)
+    sx = _side(xpos, xval, log_mu, xbound2, yval, xstart, xend)
+    sy = _side(ypos, yval, log_nu, ybound2, xval, ystart, yend)
     log_m_terms = torch.log(torch.clamp_min(torch.maximum(nx, ny), 2.0))
-    # loop-invariant parts of the half-updates
-    pv_x = (yv_win[:, None, :] > 0.5) & (xval.reshape(-1, LANE)[:, :, None]
-                                         > 0.5)
-    pv_y = (xv_win[:, None, :] > 0.5) & (yval.reshape(-1, LANE)[:, :, None]
-                                         > 0.5)
-
-    def tail_terms(bound2, q_valid, other_valid):
-        fin = torch.isfinite(bound2)
-        tail = (-bound2, torch.log1p(torch.where(fin, bound2, 0.0)),
-                (q_valid < 0.5) | ~fin)
-        return tail, ~(other_valid > 0.5).any()
-
-    tails_x = tail_terms(xbound2, xval, yval)
-    tails_y = tail_terms(ybound2, yval, xval)
-
-    def half_update(A, pv, bids, other_pot, other_valid, q_valid, log_marg,
-                    tails):
-        """One reference half-update on a banded side: the new potential
-        (flat, sorted order) and this pass's exactness proof."""
-        (neg_bound2, log1p_b2, trivially_ok), no_valid_other = tails
-        pot_win = other_pot.reshape(-1, LANE)[bids].reshape(A.shape[0], -1)
-        M = torch.where(pv, A + pot_win[:, None, :] * inv_eps, NEG_BIG)
-        ls = torch.logsumexp(M, dim=-1).reshape(-1)              # (n_pad,)
-        new = eps * (log_marg - ls)
-        new = torch.where(q_valid > 0.5, new, 0.0)
-        # proof: every window-excluded term ≤ e^LOG_TOL of the row lse; the
-        # log1p(bound²) term extends it to the cost-weighted tail of the
-        # final value pass (C·e^{-C/ε} decreases beyond C = ε ≤ bound²)
-        wmax = torch.where(other_valid > 0.5, other_pot, -math.inf).max()
-        margin = ((neg_bound2 + wmax) * inv_eps + log_m_terms + log1p_b2
-                  - ls)
-        row_ok = trivially_ok | (margin <= LOG_TOL)
-        return new, row_ok.all() | no_valid_other
-
-    u = torch.zeros(n_pad, device=dev)
-    v = torch.zeros(m_pad, device=dev)
-    err = torch.full((), math.inf, device=dev)
-    iterations = torch.zeros((), dtype=torch.long, device=dev)
-    for it in range(max_iter):
-        active = err >= thresh
-        if it % _STOP_CHECK == 0 and not bool(active):
-            break
-        iterations = iterations + active
-        u1 = u
-        un, ok_u = half_update(A_x, pv_x, ybids, v, yval, xval, log_mu,
-                               tails_x)
-        vn, ok_v = half_update(A_y, pv_y, xbids, un, xval, yval, log_nu,
-                               tails_y)
-        errn = ((un - u1) * xval).abs().sum()
-        u = torch.where(active, un, u)
-        v = torch.where(active, vn, v)
-        err = torch.where(active, errn, err)
-        exact = exact & (ok_u & ok_v | ~active)
-
-    # transport cost on the included pairs (the excluded mass is covered by
-    # the per-iteration proof)
-    v_win = v.reshape(-1, LANE)[ybids].reshape(Tq, -1)
-    M = torch.where(pv_x,
-                    A_x + (u.reshape(Tq, LANE)[:, :, None]
-                           + v_win[:, None, :]) * inv_eps,
-                    NEG_BIG)
-    C = -A_x * eps
-    cost = torch.where(pv_x, torch.exp(M) * C, 0.0).sum()
+    iterate = (banded_iterations_plain if dev.type == "cpu"
+               else sinkhorn.banded_iterations_cuda)
+    cost, exact, iterations = iterate(sx, sy, w, eps, max_iter, thresh,
+                                      log_m_terms, ok_x & ok_y, LOG_TOL,
+                                      _STOP_CHECK)
     return (cost, exact, iterations) if with_iterations else (cost, exact)
 
 
@@ -270,11 +301,13 @@ def sinkhorn_banded_or_dense(x: torch.Tensor, y: torch.Tensor,
                              thresh: float = 1e-1, block: int = 2048
                              ) -> torch.Tensor:
     """Banded Sinkhorn with its proof; the streaming dense kernel when the
-    proof fails (one host read of ``exact``)."""
+    proof fails (one host read of ``exact``; counted in
+    ``ops.sinkhorn.KERNEL.fallbacks``)."""
     cost, exact = sinkhorn_banded(x, y, mask_x, mask_y, eps=eps,
                                   max_iter=max_iter, thresh=thresh)
     if bool(exact):
         return cost
+    sinkhorn.KERNEL.fallbacks += 1
     return sinkhorn_masked_chunked(x, y, mask_x, mask_y, eps=eps,
                                    max_iter=max_iter, thresh=thresh,
                                    block=block)
