@@ -19,6 +19,10 @@ physics is the classic Helbing model with the reference's config knobs:
 - ped-obstacle repulsion ``A·exp(−r/B)`` (``pedobs_repulsive_*``),
 - ``oversampling`` integration sub-steps per recorded frame,
 - speed clamp at ``max_speed_multiplier · v0``.
+
+Under a profiler each frame of :func:`simulate` is a ``frame`` span and its
+sub-steps an ``sf.substeps`` device span inside it; :data:`PAIRS` counts the
+pairs :func:`social_force` evaluates.
 """
 
 from __future__ import annotations
@@ -32,6 +36,7 @@ import torch
 
 from piml_tpu_torch.engine.rollout import select_waypoint
 from piml_tpu_torch.scene import Scene
+from piml_tpu_torch.utils.profiling import annotate
 
 Device = Union[str, torch.device]
 
@@ -66,6 +71,20 @@ class SpawnSchedule(NamedTuple):
         return SpawnSchedule(*(x.to(device) for x in self))
 
 
+@dataclasses.dataclass
+class PairCount:
+    """Pairs :func:`social_force` has evaluated: ``N²`` pedestrian pairs
+    (the self pair and absent slots included) and ``N·M`` obstacle pairs
+    a call.  Host integers taken from the shapes, so counting reads
+    nothing from the card."""
+
+    ped: int = 0
+    obs: int = 0
+
+
+PAIRS = PairCount()
+
+
 class GenState(NamedTuple):
     p: torch.Tensor          # (N, 2) NaN when inactive
     v: torch.Tensor
@@ -87,7 +106,9 @@ def social_force(
 ) -> torch.Tensor:
     """Total force on each agent; NaN-safe (inactive slots give 0 to the
     others).  The ``(N, M, 2)`` obstacle temporaries live only inside this
-    call."""
+    call.  Counted in :data:`PAIRS`."""
+    PAIRS.ped += p.shape[0] ** 2
+    PAIRS.obs += p.shape[0] * obstacles.shape[0]
     ed_raw = dest - p
     ed = ed_raw / torch.clamp_min(_norm(ed_raw), 1e-8)
     goal = params.desired_speed_intensity * (desired_speed[:, None] * ed - v)
@@ -160,41 +181,44 @@ def simulate(
     vs = torch.empty_like(ps)
     actives = torch.empty((num_frames, n_cap), device=device)
     for t in range(num_frames):
-        # spawn slots whose frame has come (a device compare, no host read)
-        spawn_now = sched.spawn_frame == t
-        active = torch.maximum(active, spawn_now.to(active.dtype))
-        p = torch.where(spawn_now[:, None], sched.position, p)
-        v = torch.where(spawn_now[:, None], sched.velocity, v)
-        dest_idx = torch.where(spawn_now, 0, dest_idx)
-        dest = select_waypoint(sched.waypoints,
-                               torch.clamp(dest_idx, 0, n_wp - 1))
+        with annotate("frame"):
+            # spawn slots whose frame has come (a device compare, no host read)
+            spawn_now = sched.spawn_frame == t
+            active = torch.maximum(active, spawn_now.to(active.dtype))
+            p = torch.where(spawn_now[:, None], sched.position, p)
+            v = torch.where(spawn_now[:, None], sched.velocity, v)
+            dest_idx = torch.where(spawn_now, 0, dest_idx)
+            dest = select_waypoint(sched.waypoints,
+                                   torch.clamp(dest_idx, 0, n_wp - 1))
 
-        keep = (active == 1)[:, None]
-        for _ in range(params.oversampling):
-            f = social_force(params, p, v, dest, sched.desired_speed,
-                             obstacles)
-            v2 = v + f * dt
-            speed = _norm(v2)
-            v2 = torch.where(speed > cap,
-                             v2 / torch.clamp_min(speed, 1e-8) * cap, v2)
-            p2 = p + v2 * dt
-            p, v = torch.where(keep, p2, p), torch.where(keep, v2, v)
+            keep = (active == 1)[:, None]
+            with annotate("sf.substeps", device=True):
+                for _ in range(params.oversampling):
+                    f = social_force(params, p, v, dest,
+                                     sched.desired_speed, obstacles)
+                    v2 = v + f * dt
+                    speed = _norm(v2)
+                    v2 = torch.where(
+                        speed > cap, v2 / torch.clamp_min(speed, 1e-8) * cap,
+                        v2)
+                    p2 = p + v2 * dt
+                    p, v = torch.where(keep, p2, p), torch.where(keep, v2, v)
 
-        # waypoint advance + retirement
-        if advance_fn is None:
-            adv = _norm(p - dest)[:, 0] < params.arrive_distance
-        else:
-            adv = advance_fn(p, dest)
-        adv = adv & (active == 1)
-        dest_idx = dest_idx + adv.to(dest_idx.dtype)
-        done = dest_idx > sched.dest_num - 1
-        if retire_fn is not None:
-            done = done | retire_fn(p, dest_idx, sched.dest_num,
-                                    sched.waypoints)
-        dest_idx = torch.where(done, sched.dest_num - 1, dest_idx)
-        active = torch.where(done, 0.0, active)
-        p = torch.where((active == 1)[:, None], p, math.nan)
-        ps[t], vs[t], actives[t] = p, v, active
+            # waypoint advance + retirement
+            if advance_fn is None:
+                adv = _norm(p - dest)[:, 0] < params.arrive_distance
+            else:
+                adv = advance_fn(p, dest)
+            adv = adv & (active == 1)
+            dest_idx = dest_idx + adv.to(dest_idx.dtype)
+            done = dest_idx > sched.dest_num - 1
+            if retire_fn is not None:
+                done = done | retire_fn(p, dest_idx, sched.dest_num,
+                                        sched.waypoints)
+            dest_idx = torch.where(done, sched.dest_num - 1, dest_idx)
+            active = torch.where(done, 0.0, active)
+            p = torch.where((active == 1)[:, None], p, math.nan)
+            ps[t], vs[t], actives[t] = p, v, active
     return ps, vs, actives
 
 
